@@ -1,7 +1,8 @@
 """Benchmark suite — one JSON line per BASELINE config runnable on one
-chip, so regressions in the hard paths (packet/regen kernels, streaming,
-sorted queues, textures) are visible round over round, not just the easy
-Cornell case.
+GPU, so regressions in the hard paths (BVH traversal, many lights, env
+maps, textures, instancing) are visible, not just the easy Cornell case.
+It refuses to run without a GPU and exits non-zero if any sub-bench
+fails.
 
 Line 1 AND the final line are the headline metric (Cornell Box 1024x1024,
 32 spp/step, depth 8 — the reference's exact workload, ref main.cpp:16-17,
@@ -106,15 +107,13 @@ def _gi_cfg(**kw):
     cam = CameraConfig.look_at(origin=(0.0, 2.2, 5.0), target=(0.0, 0.0, 0.0),
                                fov_y_deg=50.0)
     base = dict(width=1024, height=1024, spp_per_step=8, max_depth=8,
-                sampling="cosine", camera=cam, sky_emission=(0.8, 0.85, 1.0),
-                backend="pallas")
+                sampling="cosine", camera=cam, sky_emission=(0.8, 0.85, 1.0))
     base.update(kw)
     return RenderConfig(**base)
 
 
 def bench_gi_100k(results):
-    """BASELINE config 3/4 class: 100k-tri GI with NEE + RR through the
-    fused BVH regen megakernel."""
+    """BASELINE config 3/4 class: 100k-tri GI with NEE + RR."""
     from sfvp_tpu import upload
 
     buffers = upload(_sphere(224))
@@ -124,22 +123,18 @@ def bench_gi_100k(results):
 
 
 def bench_streamed_500k(results):
-    """HBM-streamed triangle rows (beyond the VMEM residency cap)."""
+    """500k-tri GI (the largest sphere cell)."""
     from sfvp_tpu import upload
 
     buffers = upload(_sphere(500))
-    cfg = _gi_cfg(width=512, height=512, stream_tris=True)
+    cfg = _gi_cfg(width=512, height=512)
     v = _bench_step(cfg, buffers, steps=3, warmup=1)
     return _emit(results, "streamed_500k_512_mrays_per_sec_per_chip", v)
 
 
 def bench_city_sorted(results):
-    """BASELINE config 5 class (one-chip slice): mixed materials (mirror
-    windows) city at 2048^2 with NEE + folded sample waves. Routes
-    through the fused BVH regen megakernel since round 4 (measured 3.79x
-    over the sorted wavefront loop at this exact config,
-    benchmarks/probe_chunk_nee.py); the metric key is kept for
-    round-over-round comparability."""
+    """BASELINE config 5 class (one-device slice): mixed materials
+    (mirror windows) city at 2048^2 with NEE + folded sample waves."""
     from sfvp_tpu import upload
     from sfvp_tpu.config import CameraConfig
     from sfvp_tpu.scene.procedural import city_mesh
@@ -154,10 +149,9 @@ def bench_city_sorted(results):
 
 
 def bench_city_4k(results):
-    """BASELINE config 5, LITERALLY (one-chip slice): the mixed-material
-    city at 3840x2160 (true 4K) with NEE + RR + folded sample waves —
-    pins the README claim that 4K sustains the 2048^2 row's throughput
-    instead of leaving it asserted."""
+    """BASELINE config 5, LITERALLY (one-device slice): the
+    mixed-material city at 3840x2160 (true 4K) with NEE + RR + folded
+    sample waves."""
     from sfvp_tpu import upload
     from sfvp_tpu.config import CameraConfig
     from sfvp_tpu.scene.procedural import city_mesh
@@ -172,12 +166,9 @@ def bench_city_4k(results):
 
 
 def bench_city_fused_lights(results):
-    """Many-light NEE in the FUSED BVH regen kernel: 648 emissive rooftop
-    tris (past the old 256 unroll cap) selected per bounce by the one-hot
-    MXU CDF select (imgfetch.light_select_rows). Same city geometry as
-    bench_city_sorted with a lower emissive fraction so the light count
-    lands inside MAX_KERNEL_LIGHTS=1024; spp_chunk=1 keeps dispatch on
-    the fused kernel."""
+    """Many-light NEE: 648 emissive rooftop tris selected per bounce by
+    the light CDF. Same city geometry as bench_city_sorted with a lower
+    emissive fraction."""
     from sfvp_tpu import upload
     from sfvp_tpu.config import CameraConfig
     from sfvp_tpu.scene.procedural import city_mesh
@@ -194,11 +185,9 @@ def bench_city_fused_lights(results):
 
 
 def bench_textured_100k(results):
-    """map_Kd at scale: 100k tris + checker texture. Routes through the
-    fused BVH regen megakernel's in-kernel atlas fetch since round 3
-    (3.31 vs the wavefront/packet path's 1.50 Mrays/s); the spp_chunk=8
-    config is kept for round-over-round comparability (chunking is
-    stream-invariant, test_spp_chunk_invariance)."""
+    """map_Kd at scale: 100k tris + checker texture, all 8 samples of a
+    step in one wave (spp_chunk=8; chunking is stream-invariant,
+    test_spp_chunk_invariance)."""
     import numpy as np
 
     from sfvp_tpu import upload
@@ -222,17 +211,13 @@ def bench_textured_100k(results):
     scene.face_tex = np.zeros((T,), np.int32)
     scene.texture_paths = [path]
     buffers = upload(scene)
-    # spp_chunk=8 folds the whole step into one wave: measured 1.29x on
-    # textured scenes (big waves amortize the sorts + kernel launches)
     cfg = _gi_cfg(width=512, height=512, spp_chunk=8)
     v = _bench_step(cfg, buffers, steps=3, warmup=1)
     return _emit(results, "tex_100k_512_mrays_per_sec_per_chip", v)
 
 
 def bench_env_nee_100k(results):
-    """IBL with a small bright sun: importance-sampled env NEE + MIS,
-    fused in-kernel since round 3 (exact CDF inversion + any-hit shadow
-    packets, kernels/imgfetch.py)."""
+    """IBL with a small bright sun: importance-sampled env NEE + MIS."""
     import os
     import tempfile
 
@@ -256,11 +241,7 @@ def bench_env_nee_100k(results):
 
 
 def bench_env_big_100k(results):
-    """IBL with an OVERSIZED sky (2048x1024 = 24MB packed, 12x past
-    ENV_VMEM_MAX_BYTES): stays on the fused BVH regen kernel via
-    deferred miss records since round 4 (megakernel_bvh defer_env) —
-    before, any map past the cap knocked the whole render onto the
-    wavefront loop."""
+    """IBL with a large sky (2048x1024, 24MB packed)."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -283,11 +264,8 @@ def bench_env_big_100k(results):
 
 
 def bench_env_big_nee_100k(results):
-    """Env NEE on the OVERSIZED sky (round-5 VERDICT item 3): --nee
-    --mis with a 2048x1024 sun-dominated map stays FUSED via deferred
-    per-(sample, bounce) NEE records + the resident pooled proposal CDF
-    (megakernel_bvh defer_env_nee) — this exact config took the ~0.9
-    Mrays/s wavefront fallback through round 4."""
+    """Env NEE on the large sky: --nee --mis with a 2048x1024
+    sun-dominated map (pooled coarse proposal, integrate/lights.py)."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -315,9 +293,8 @@ def bench_env_big_nee_100k(results):
 
 
 def bench_instanced_tlas(results):
-    """Instanced scenes through the in-kernel two-level TLAS traversal
-    (50 instances sharing two displaced-sphere BLASes, ~220k flattened
-    tris; first-class Renderer path since round 3)."""
+    """Instanced scenes (49 instances sharing two displaced-sphere
+    meshes, ~220k flattened tris)."""
     import jax
 
     from sfvp_tpu import RenderConfig, init_state
@@ -348,12 +325,15 @@ def bench_instanced_tlas(results):
 
 def main() -> int:
     from sfvp_tpu.utils.cache import enable_compilation_cache
+    from sfvp_tpu.utils.diagnostics import check_capabilities
 
+    check_capabilities(platform="gpu")
     enable_compilation_cache()
     results = []
 
     headline = bench_cornell(results)
 
+    failed = []
     for fn in (bench_cornell_wallclock, bench_gi_100k, bench_streamed_500k,
                bench_city_sorted, bench_city_4k, bench_city_fused_lights,
                bench_textured_100k, bench_env_nee_100k,
@@ -361,13 +341,17 @@ def main() -> int:
                bench_instanced_tlas):
         try:
             fn(results)
-        except Exception as e:  # a broken sub-bench must not kill the suite
+        except Exception as e:  # report every cell, then fail the run
             rec = {"metric": fn.__name__, "error": f"{type(e).__name__}: {e}"}
             results.append(rec)
+            failed.append(fn.__name__)
             print(json.dumps(rec), flush=True)
 
     with open("BENCH_SUITE.json", "w") as f:
         json.dump(results, f, indent=1)
+    if failed:
+        print(f"failed sub-benches: {failed}", file=sys.stderr, flush=True)
+        return 1
     # the driver parses the LAST JSON line as THE metric: repeat the
     # headline so the suite lines above never displace it
     print(json.dumps(headline), flush=True)

@@ -1,7 +1,7 @@
-"""BASELINE config 5: multi-chip 4K wavefront render over a device mesh.
+"""BASELINE config 5: multi-device 4K wavefront render over a device mesh.
 
-On real multi-chip hardware this runs as-is; on a single-chip or CPU host,
-pass --virtual N to simulate N devices (CPU mesh) and validate scaling
+On a multi-GPU host this runs as-is; on a single-device or CPU host, pass
+--virtual N to simulate N devices (CPU mesh) and validate the sharding
 logic. One JSON line."""
 
 from __future__ import annotations

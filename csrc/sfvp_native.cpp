@@ -2,7 +2,7 @@
 //
 // The reference keeps its scene ingest (tinyobjloader, ref main.cpp:28-58)
 // and acceleration-structure build (ref main.cpp:414-455) in C++; these are
-// their TPU-framework counterparts:
+// their counterparts here:
 //   - OBJ/MTL loader with the exact flattening semantics of the Python
 //     parser in sfvp_tpu/scene/objload.py (fan triangulation, Y-flip,
 //     non-indexed expansion, per-face materials) — byte-identical outputs.

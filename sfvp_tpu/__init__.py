@@ -1,9 +1,9 @@
-"""sfvp_tpu — a TPU-native wavefront Monte-Carlo path tracer.
+"""sfvp_tpu — a wavefront Monte-Carlo path tracer in JAX.
 
-Brand-new JAX / XLA / Pallas framework with the capabilities of
+A JAX / XLA / Pallas renderer with the capabilities of
 yknishidate/single-file-vulkan-pathtracing: progressive Cornell-Box path
-tracing with exact reference semantics in parity mode, plus TPU-first
-extensions (Pallas trace kernels, software LBVH, multi-chip sharding,
+tracing with exact reference semantics in parity mode, plus extensions
+(a fused Cornell kernel for GPUs, software BVHs, multi-device sharding,
 cosine sampling / NEE / Russian roulette, checkpoint-resume).
 """
 

@@ -1,4 +1,4 @@
-"""Instancing — the TPU analog of the reference's TLAS over BLAS instances
+"""Instancing — the analog of the reference's TLAS over BLAS instances
 (ref main.cpp:514-538: one instance, 3x4 transform, cull disable).
 
 Two strategies:

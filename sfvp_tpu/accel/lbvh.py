@@ -1,4 +1,4 @@
-"""Software LBVH — the TPU build's replacement for the reference's hardware
+"""Software LBVH — this renderer's replacement for the reference's hardware
 acceleration structures (BLAS/TLAS built by buildAccelerationStructuresKHR,
 ref main.cpp:414-538, consumed opaquely by traceRayEXT).
 
@@ -204,7 +204,7 @@ def build_bvh(scene_buffers, leaf_size: int = 4, native: str = "auto") -> BVH:
     its output is bit-identical to the NumPy builder (tested)."""
     t = scene_buffers.num_tris
     # stack on HOST from the SoA columns — going through the jnp .v0/.v1/.v2
-    # properties would dispatch (and remote-compile) device ops per call
+    # properties would dispatch (and compile) device ops per call
     cols = [
         np.asarray(getattr(scene_buffers, f))[:t]
         for f in ("v0x", "v0y", "v0z", "v1x", "v1y", "v1z",

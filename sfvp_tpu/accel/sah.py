@@ -4,12 +4,12 @@ Morton LBVH (accel/lbvh.py) for the offline/host build path.
 The reference's hardware build exposes a quality hint
 (``PreferFastTrace``, ref main.cpp:418) and the driver is free to build
 whatever tree it likes behind ``buildAccelerationStructuresKHR``
-(ref main.cpp:440-447); this module is that "prefer fast trace" build for
-the TPU framework: full binned surface-area-heuristic sweeps (Wald 2007,
+(ref main.cpp:440-447); this module is that "prefer fast trace" build
+here: full binned surface-area-heuristic sweeps (Wald 2007,
 16 bins per axis) instead of Morton-bit splits. Same output format as the
 LBVH (threaded DFS skip links + contiguous sorted-leaf triangle ranges) so
-every consumer — the jnp traversal, the 8-wide collapse, the packet
-kernels — works unchanged.
+every consumer — the jnp traversal, the 8-wide collapse — works
+unchanged.
 
 Measured on the 100k-tri bumpy-sphere GI wave (benchmarks/sim_packets.py):
 SAH cuts packet pops/ray by ~11% on incoherent bounce waves vs LBVH

@@ -2,8 +2,9 @@
 
 The reference's TLAS is a hardware-traversed BVH over instances with 3x4
 transforms (ref main.cpp:514-538); round 1 unrolled instances on the host
-("suited to few, large instances"). This module builds the device tables
-for in-kernel two-level traversal (kernels/bvh_tlas.py):
+("suited to few, large instances"). This module builds the tables for a
+two-level traversal (host-side build; instanced scenes are flattened for
+rendering until a GPU two-level traversal reads these):
 
   - one wide BLAS per UNIQUE mesh (shared by its instances), node/tri rows
     concatenated into single tables with refs rewritten to global rows;
@@ -43,7 +44,7 @@ class TwoLevelBVH(NamedTuple):
     max_stack: int
     num_instances: int
     # parallel uv/texid leaf rows (same indices as tris) when any mesh has
-    # map_Kd textures; texids are MESH-LOCAL (+1) — the kernel adds the
+    # map_Kd textures; texids are MESH-LOCAL (+1) — a traversal adds the
     # instance row's texture base (lane 25) to land in the flattened
     # merged texture pool (accel/instances.py flatten_instances order)
     tris_aux: "np.ndarray | None" = None
@@ -125,7 +126,7 @@ def _wide_tlas_rows(inst_bmin: np.ndarray, inst_bmax: np.ndarray):
 
 def build_two_level(instances: Sequence[Instance],
                     leaf_size: int = 8) -> TwoLevelBVH:
-    """Pack shared BLASes + TLAS + instance table for the packet kernel."""
+    """Pack shared BLASes + TLAS + instance table."""
     # one wide BLAS per unique mesh (aux uv/texid rows when textured)
     blas_cache: dict = {}
     for inst in instances:

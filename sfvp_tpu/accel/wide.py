@@ -1,11 +1,12 @@
-"""8-wide BVH layout for the Pallas packet-traversal kernel.
+"""8-wide BVH layout (host-side build; no traversal in this package reads
+it yet).
 
-Why wide: Mosaic allows dynamic indexing of VMEM only along the SUBLANE
-dimension, so a node must be one 128-lane row whose fields are extracted at
-STATIC lane positions. An 8-ary node packs its children's AABBs (SoA: 8
-lanes per coordinate) plus per-child reference and tag; a leaf is one row
-of the triangle table holding 8 triangles x 16 fields (9 vertex coords,
-Kd, Ke, mtype) so intersection and shading data arrive in one load.
+A node is one 128-float row: an 8-ary node packs its children's AABBs
+(SoA: 8 floats per coordinate) plus per-child reference and tag; a leaf is
+one row of the triangle table holding 8 triangles x 16 fields (9 vertex
+coords, Kd, Ke, mtype) so intersection and shading data arrive in one
+load. It was the node layout of an earlier packet-traversal kernel; a GPU
+traversal may keep it or the binary layouts (accel/lbvh.py, sah.py).
 
 Built host-side by collapsing the binary LBVH (accel/lbvh.py — or its
 native C++ twin) three levels at a time; binary leaf_size is forced to 8 so
@@ -46,22 +47,14 @@ class WideBVH(NamedTuple):
     # map_Kd extension: tri k of a leaf row occupies lanes [16k, 16k+7):
     # u0 v0 u1 v1 u2 v2 (texid+1)  — texid is stored +1 so the zero
     # padding of empty slots decodes to -1 (untextured). None when the
-    # scene has no textures (the packet kernels then skip the aux planes).
+    # scene has no textures.
     tris_aux: "np.ndarray | None" = None  # (Ml, 128) f32
-
-    @property
-    def codes_nbytes(self) -> int:
-        """Size .codes would occupy (Mi * WIDTH i32) — lets the kernel
-        builders gate smem_codes by size without running the decode."""
-        return self.nodes.shape[0] * WIDTH * 4
 
     @property
     def codes(self) -> np.ndarray:
         """(Mi, WIDTH) i32 pre-decoded child stack codes: 0 invalid,
-        ref+1 internal, -(ref+1) leaf. Lets the traversal kernels read
-        each child's push code with ONE scalar SMEM load that depends
-        only on the popped code — off the VMEM row-load critical chain —
-        instead of two lane extracts + a select per child."""
+        ref+1 internal, -(ref+1) leaf: each child's push code as one
+        scalar load instead of two field reads + a select per child."""
         w = WIDTH  # shipping layout is 8-wide (see node_layout)
         ref = self.nodes[:, 6 * w: 7 * w].astype(np.int64)
         tag = self.nodes[:, 7 * w: 8 * w]
@@ -74,9 +67,9 @@ class WideBVH(NamedTuple):
 def reorder_bfs(wide: WideBVH) -> WideBVH:
     """Permute the node table into BFS (level) order and remap child refs.
 
-    Why: the hierarchical SMEM node table keys on ``node_i < top_n`` —
-    with BFS numbering the first ``top_n`` rows are exactly the top of the
-    tree, where packet pops concentrate (benchmarks/probe_smem_top.py).
+    Why: with BFS numbering the first rows are exactly the top of the
+    tree, where traversal pops concentrate, so a cache of the first rows
+    holds the hot nodes.
     The default emission order is DFS pre-order (build_wide), whose low
     indices are root + leftmost subtree, not the top levels.
 

@@ -24,8 +24,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "instanced"],
                    default="cornell",
                    help="procedural test scene when --obj is not given "
-                        "(instanced = shared-BLAS spheres through the "
-                        "two-level TLAS kernel)")
+                        "(instanced = shared-mesh spheres, flattened)")
     p.add_argument("--scene-tris", type=int, default=100_000,
                    help="approximate triangle count for procedural scenes")
     p.add_argument("--width", type=int, default=1024)
@@ -40,7 +39,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mis", action="store_true",
                    help="balance-heuristic MIS between NEE and BSDF sampling (implies --nee)")
     p.add_argument("--traversal", choices=["auto", "brute", "bvh"], default="auto")
-    p.add_argument("--backend", choices=["auto", "jnp", "pallas"], default="auto")
+    p.add_argument("--backend", choices=["auto", "jnp", "pallas"],
+                   default="auto",
+                   help="pallas = the fused Cornell kernel (GPU only; "
+                        "raises where it cannot render the config)")
     p.add_argument("--out", default="render.png")
     p.add_argument("--srgb", action="store_true", help="sRGB-encode the PNG (default: unorm clamp like the reference swapchain)")
     p.add_argument("--frame-every", type=int, default=0, help="write intermediate PNG every N steps")
@@ -62,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="focal distance along the view ray")
     p.add_argument("--dist", action="store_true",
                    help="shard the framebuffer by rows over ALL local "
-                        "devices (multi-chip; pixel-identical to 1 chip)")
+                        "devices (pixel-identical to one device)")
     p.add_argument("--adaptive", type=float, default=None, metavar="FRAC",
                    help="variance-driven adaptive sampling: after warmup, "
                         "each step renders only the noisiest FRAC of tiles")

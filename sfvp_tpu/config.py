@@ -97,47 +97,10 @@ class RenderConfig:
     # Execution knobs (do not affect the image in expectation).
     spp_chunk: int = 1               # samples folded into one ray wave
     traversal: str = "auto"          # "auto" | "brute" | "bvh"
-    backend: str = "auto"            # "auto" | "jnp" | "pallas"
+    backend: str = "auto"            # "auto" | "jnp" | "pallas" (GPU kernel)
     bvh_leaf_size: int = 4
     # "auto": brute force for small scenes, BVH beyond this many triangles.
     brute_force_max_tris: int = 256
-    # ray-block rows (x128 lanes) per Pallas megakernel program; 32 is the
-    # empirical sweet spot on v5e (VMEM live-set vs occupancy).
-    pallas_block_rows: int = 32
-    # in-lane sample regeneration: one dynamic loop runs all spp samples
-    # per pixel lane back-to-back (655 -> 752 Mrays/s on Cornell 1024p).
-    # Off = the chunked megakernel (bitwise-matches the jnp integrator).
-    megakernel_regen: bool = True
-    # packet size (rows x 128 rays) for the BVH packet-traversal kernel;
-    # smaller packets cull better, larger ones amortize node loads.
-    packet_block_rows: int = 8
-    # packet rows for the TWO-LEVEL (instanced) fused regen kernel.
-    # Round 4 preferred 16 (1.32/1.57/0.98 at 8/16/32) because the
-    # per-leaf-pop scalar work was heavy; round 5's deferred instance
-    # transform + SMEM leaf ring stripped that chain and 8 rows win
-    # again (1.857 vs 1.740 Mrays/s at 8 vs 16 on the 50-instance
-    # bench, benchmarks/probe_tlas_ctx.py). Execution knob: never
-    # changes the image.
-    tlas_block_rows: int = 8
-    # pixel-tile swizzle for packet coherence: a packet then covers a
-    # compact tile_size x tile_size screen region instead of a full image
-    # row (measured 5.6x on the 100k-tri sphere). 0 disables.
-    packet_tile_size: int = 32
-    # re-sort the ray queue every bounce by (direction octant, position
-    # morton) so incoherent bounce rays form coherent packets; dead rays
-    # compact to all-dead packets. Payload/packet path only.
-    sort_bounce_rays: bool = True
-    # prepend the surface material type to the bounce sort key (material-
-    # sorted queues, BASELINE config 5); only engages on scenes that mix
-    # materials. Execution knob: never changes the image.
-    sort_material_key: bool = True
-    # HBM-streamed triangle rows (DMA leaf prefetch, kernels/bvh_packet2):
-    # None = auto (stream when nodes+tris exceed vmem_scene_budget bytes),
-    # True/False = force. Streaming removes the VMEM scene-size cap.
-    stream_tris: "bool | None" = None
-    # measured headroom: a 12.8MB node+tri table compiles and runs alongside
-    # the packet kernels' block data on v5e (16MB VMEM)
-    vmem_scene_budget: int = 13 * 1024 * 1024
     # debug config (SURVEY §5 sanitizer analog — the reference leans on the
     # Khronos validation layer): enables jax_debug_nans plus a finite-ness
     # assertion on the accumulator at every observed step boundary.
@@ -152,18 +115,16 @@ class RenderConfig:
         return self.spp_per_step // self.spp_chunk
 
     # fields that affect the accumulated image (whitelist — execution knobs
-    # like backend/traversal/block sizes/sorting never change the estimate).
-    # spp_chunk is an execution knob since round 5: per-sample streams are
-    # derived from (pixel, global sample index), so folding samples into
-    # waves is chunk-layout INVARIANT up to f32 summation order
-    # (test_spp_chunk_invariance) and dispatch may auto-tune it
-    # (dispatch._auto_chunk_cfg). config_hash hashes the constant 1 in its
-    # place so every default-chunk hash (goldens, existing checkpoints)
-    # stays stable; checkpoints written with spp_chunk>1 under older
-    # versions hash differently and refuse resume — correct, since their
-    # accumulated bits depend on the old chunked summation order (the
-    # round-4 fused re-route of chunked-NEE configs already changed those
-    # bits once, see docs/ROADMAP.md).
+    # like backend/traversal never change the estimate).
+    # spp_chunk is an execution knob: per-sample streams are derived from
+    # (pixel, global sample index), so folding samples into waves is
+    # chunk-layout INVARIANT up to f32 summation order
+    # (test_spp_chunk_invariance). config_hash hashes the constant 1 in
+    # its place so every default-chunk hash (goldens, existing
+    # checkpoints) stays stable; checkpoints written with spp_chunk>1
+    # under older versions hash differently and refuse resume — correct,
+    # since their accumulated bits depend on the old chunked summation
+    # order.
     _IMAGE_FIELDS = (
         "width", "height", "spp_per_step", "max_depth", "t_min", "t_max",
         "sky_emission", "camera", "sampling", "use_nee", "use_rr",

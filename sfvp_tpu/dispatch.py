@@ -1,23 +1,25 @@
-"""Backend dispatch: choose the integrator/trace implementation from the
-config and scene size. The reference has one hardware path (traceRayEXT);
-the TPU build has several software paths with identical semantics:
+"""Backend dispatch: choose the integrator and trace implementation from
+the config, the scene and the platform. The reference has one hardware
+path (traceRayEXT); this renderer has software paths with the same
+estimator and the same sample streams:
 
-  - brute/pallas: fused path-tracing megakernel, tris in VMEM (TPU default
-    for small scenes — the headline Cornell path)
-  - brute/jnp:    scan over triangles, XLA-fused (CPU / oracle)
-  - bvh/jnp:      threaded-BVH traversal in jnp (large scenes on CPU;
-                  correctness oracle for the Pallas BVH kernel)
-  - bvh/pallas:   BVH packet-traversal kernel (large scenes on TPU)
-  - instanced:    two-level TLAS packet kernel for lists of Instances
-                  (instanced_wavefront_kwargs; jnp backends flatten to
-                  the single-level oracle)
+  - brute/pallas: the fused Cornell kernel (kernels/megakernel.py), one
+                  launch per step; GPU only, and only for configs inside
+                  its capability set (megakernel.unsupported)
+  - brute/jnp:    the wavefront integrator with a scan over triangles
+  - bvh/jnp:      the wavefront integrator with the stackless BVH
+                  traversal (kernels/bvh_traverse.py)
+  - instanced:    lists of Instances are flattened into world-space
+                  triangles and dispatched like any other scene
 
-All are tested equivalent on identical sample streams.
+``backend="auto"`` takes the fused kernel whenever it can render the
+config and the jnp integrator otherwise. An explicit ``"pallas"`` that
+the kernel cannot honour raises; it never falls back silently.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import jax
 
@@ -25,16 +27,9 @@ from .config import RenderConfig
 from .kernels.intersect import trace_brute_jnp
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
 def _dbg(choice: str, **why) -> None:
     """SFVP_DISPATCH_DEBUG=1 prints which integrator a config routed to
-    and the gates that decided it (stderr, one line per selection)."""
+    and why (stderr, one line per selection)."""
     import os
 
     if os.environ.get("SFVP_DISPATCH_DEBUG", "") not in ("", "0"):
@@ -45,78 +40,48 @@ def _dbg(choice: str, **why) -> None:
               file=sys.stderr, flush=True)
 
 
-_AUTO_CHUNK_MAX = 8          # measured-best fold (probe: 1.29x, textured
-                             # 100k at 256^2x8spp — docs/ROADMAP.md)
-_AUTO_CHUNK_WAVE_CAP = 1 << 22  # rays per wave: past ~4M the sorts and
-                                # launches are already amortized and the
-                                # live SoA planes start to cost real HBM
+def _traversal(cfg: RenderConfig, buffers) -> str:
+    if cfg.traversal != "auto":
+        return cfg.traversal
+    return "brute" if buffers.num_tris <= cfg.brute_force_max_tris else "bvh"
 
 
-def _auto_chunk_cfg(cfg: RenderConfig) -> RenderConfig:
-    """Auto-tune spp_chunk for wavefront-loop routes (pallas backends
-    only, so the CPU/jnp oracle routes stay bitwise-stable for goldens).
-    Folding samples into one wave amortizes the per-wave bounce sorts and
-    kernel launches; sample streams are derived from the GLOBAL sample
-    index so the image is chunk-invariant up to f32 summation order
-    (test_spp_chunk_invariance) and spp_chunk is not hashed. Only engages
-    from the default (an explicit spp_chunk > 1 is the user's choice)."""
-    import dataclasses
+def kernel_blockers(cfg: RenderConfig, buffers) -> List[str]:
+    """Why the fused Cornell kernel cannot render (cfg, scene) here;
+    empty when it can."""
+    from .kernels.megakernel import unsupported
 
-    if cfg.spp_chunk != 1 or cfg.spp_per_step == 1:
-        return cfg
-    pixels = max(1, cfg.height * cfg.width)
-    cap = min(_AUTO_CHUNK_MAX, _AUTO_CHUNK_WAVE_CAP // pixels,
-              cfg.spp_per_step)
-    best = 1
-    for c in range(2, cap + 1):
-        if cfg.spp_per_step % c == 0:
-            best = c
-    if best == 1:
-        return cfg
-    _dbg("auto spp_chunk", chunk=best, pixels=pixels,
-         spp=cfg.spp_per_step)
-    return dataclasses.replace(cfg, spp_chunk=best)
+    out = []
+    platform = jax.default_backend()
+    if platform != "gpu":
+        out.append(f"platform {platform!r} (the kernel compiles for GPUs)")
+    if _traversal(cfg, buffers) != "brute":
+        out.append("BVH traversal")
+    return out + unsupported(cfg, buffers)
 
 
 def _resolve(cfg: RenderConfig, buffers):
-    backend = cfg.backend
-    if backend == "auto":
-        backend = "pallas" if _on_tpu() else "jnp"
-    traversal = cfg.traversal
-    if traversal == "auto":
-        traversal = (
-            "brute" if buffers.num_tris <= cfg.brute_force_max_tris else "bvh"
-        )
-    return backend, traversal
-
-
-def _guard_jnp_bvh_on_tpu() -> None:
-    """The XLA-compiled threaded-BVH dynamic-gather while_loop FAULTS the
-    TPU backend on large scenes (measured twice, docs/ROADMAP.md "KNOWN
-    BACKEND ISSUE") and a faulted chip stays wedged for ~30 min. Default
-    dispatch never routes there on TPU; refuse the explicit override
-    with a clear message instead of wedging the user's chip."""
-    import os
-
-    allow = os.environ.get("SFVP_ALLOW_JNP_BVH_ON_TPU", "")
-    # explicit allowlist: anything else ("false", "no", typos...) must
-    # NOT silently enable the chip-wedging path
-    if _on_tpu() and allow.strip().lower() not in ("1", "true", "yes"):
+    """(backend, traversal) with "auto" resolved; raises when an explicit
+    backend="pallas" cannot be honoured."""
+    traversal = _traversal(cfg, buffers)
+    if cfg.backend == "jnp":
+        return "jnp", traversal
+    if cfg.backend not in ("auto", "pallas"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    blockers = kernel_blockers(cfg, buffers)
+    if cfg.backend == "pallas" and blockers:
         raise ValueError(
-            "backend='jnp' + traversal='bvh' faults the TPU backend on "
-            "large scenes (XLA dynamic-gather while_loop; see "
-            "docs/ROADMAP.md). Use backend='pallas' (the default on TPU) "
-            "or run the jnp oracle on CPU; set "
-            "SFVP_ALLOW_JNP_BVH_ON_TPU=1 to override anyway."
+            "backend='pallas' (the fused Cornell kernel) cannot render this "
+            "config: " + "; ".join(blockers)
+            + ". Use backend='auto' or 'jnp'."
         )
+    return ("jnp" if blockers else "pallas"), traversal
 
 
 def select_trace_fn(cfg: RenderConfig, buffers) -> Callable:
     """Trace-function-level dispatch (used by the jnp integrator)."""
-    backend, traversal = _resolve(cfg, buffers)
-    if traversal == "brute":
+    if _traversal(cfg, buffers) == "brute":
         return trace_brute_jnp
-    _guard_jnp_bvh_on_tpu()
     from .accel import build_bvh
     from .kernels.bvh_traverse import make_trace_bvh_jnp
 
@@ -139,344 +104,17 @@ def select_render_step(
         return make_render_step(
             cfg, buffers, trace_fn=trace_fn, global_shape=global_shape
         )
-
     backend, traversal = _resolve(cfg, buffers)
-    import numpy as np
+    if backend == "pallas":
+        from .kernels.megakernel import make_render_step_gpu
 
-    t = buffers.num_tris
-    many_lights = False
-    n_lights = 0
-    if cfg.use_nee:
-        # in-kernel NEE selects lights via a one-hot MXU matmul past a
-        # few dozen (imgfetch.light_select_rows); past MAX_KERNEL_LIGHTS
-        # the (Lp, 128) operands outgrow VMEM and the wavefront
-        # integrator's searchsorted light sampling takes over
-        from .kernels.imgfetch import MAX_KERNEL_LIGHTS
-
-        em = (np.asarray(buffers.er)[:t] > 0) | (
-            np.asarray(buffers.eg)[:t] > 0) | (np.asarray(buffers.eb)[:t] > 0)
-        n_lights = int(em.sum())
-        many_lights = n_lights > MAX_KERNEL_LIGHTS
-    # Capability map of the BRUTE-force megakernels: the regen megakernel
-    # (megakernel_regen.py) runs diffuse + mirror + GGX + smooth
-    # dielectric shading, NEE (<= 16384 lights; one-hot MXU CDF select
-    # past a few dozen, two-level bucketed past 1024), balance-heuristic MIS,
-    # thin-lens DOF, equirect env-map skies, env NEE (importance-sampled
-    # environment, exact in-kernel CDF inversion; combined with area-light
-    # NEE when both sources exist) and
-    # map_Kd textures (all via the separable one-hot MXU machinery,
-    # kernels/imgfetch.py; maps up to ~512x256 / atlases up to ~2MB)
-    # in-kernel; the chunked megakernel (megakernel.py) is the bitwise-
-    # parity baseline (diffuse+mirror, no NEE/DOF/textures/env).
-    # Oversized atlases route to the jnp wavefront loop (still
-    # TPU-jitted); oversized env maps stay fused via deferred miss/NEE
-    # records (megakernel_bvh defer_env / defer_env_nee).
-    has_glossy = bool(np.any(np.asarray(buffers.mtype)[:t] == 2))
-    has_diel = bool(np.any(np.asarray(buffers.mtype)[:t] == 3))
-    has_tex = buffers.has_textures
-    has_dof = cfg.camera.lens_radius > 0.0
-    env = getattr(buffers, "env", None)
-    has_env = env is not None
-    if has_env:
-        from .kernels.imgfetch import env_fits_in_kernel
-
-        # env miss shading AND env NEE (importance-sampled environment,
-        # combined with area-light NEE when both exist) both fuse when the
-        # packed map fits VMEM — the texel-CDF inversion runs in-kernel as
-        # the separable exact-searchsorted (kernels/imgfetch.py). Both
-        # regen kernels additionally handle OVERSIZED maps (e.g. 2k x 1k
-        # HDR skies) by DEFERRING the radiance gathers: per-sample miss
-        # records and — since round 5 — per-(sample, bounce) env-NEE
-        # records come out of the kernel (the NEE contribution is linear
-        # in the fetched radiance; sampling uses the resident pooled
-        # coarse proposal, integrate/lights.py env_distribution_for) and
-        # one post-kernel XLA gather shades them (megakernel_bvh
-        # defer_env / defer_env_nee). No env configuration blocks fusion
-        # on this brute branch; the bvh branch routes oversized+NEE to
-        # the wavefront loop on measurement (see prefer_wavefront).
-        env_oversized = not env_fits_in_kernel(env)
-    else:
-        env_oversized = False
-    env_deferred = env_oversized
-    if has_tex:
-        from .kernels.imgfetch import atlas_fits_in_kernel
-
-        tex_blocks_fused = not atlas_fits_in_kernel(buffers.textures)
-    else:
-        tex_blocks_fused = False
-    # same combined-budget discipline as the bvh branch below: each
-    # capability fits its own cap, but the brute regen kernel's scene
-    # table + env/atlas/light operands must fit VMEM TOGETHER (the scene
-    # table is tiny at brute_force_max_tris, so only a maxed-out stack
-    # of all three capabilities can trip this)
-    if backend == "pallas" and traversal == "brute":
-        from .kernels.imgfetch import fused_extra_vmem_bytes
-
-        brute_extra = fused_extra_vmem_bytes(
-            n_lights if not many_lights else 0, env,
-            buffers.textures if has_tex else None, cfg.use_nee,
-            env_deferred=env_deferred, spp=cfg.spp_per_step,
-            max_depth=cfg.max_depth, block_rows=cfg.pallas_block_rows)
-        # scene_table is up to 27 (Tp,) f32 rows (20 base + 7 texture,
-        # kernels/megakernel.py scene_table)
-        brute_over_budget = (
-            brute_extra + 27 * buffers.v0x.nbytes > cfg.vmem_scene_budget)
-    else:
-        brute_over_budget = False
-    if ((many_lights or tex_blocks_fused or brute_over_budget)
-            and backend == "pallas" and traversal == "brute"):
-        _dbg("wavefront(jnp-brute)", many_lights=many_lights,
-             tex_blocks_fused=tex_blocks_fused,
-             brute_over_budget=brute_over_budget)
-        cfg = _auto_chunk_cfg(cfg)
-        return make_render_step(
-            cfg, buffers, trace_fn=select_trace_fn(cfg, buffers),
-            global_shape=global_shape,
-        )
-    if backend == "pallas" and traversal == "brute":
-        if cfg.megakernel_regen:
-            from .kernels.megakernel_regen import make_regen_render_step
-
-            _dbg("megakernel_regen(brute)", tris=t, lights=n_lights)
-            return make_regen_render_step(
-                cfg, buffers, global_shape=global_shape,
-                block_rows=cfg.pallas_block_rows,
-            )
-        if (not cfg.use_nee and not has_dof
-                and not has_glossy and not has_diel
-                and not has_tex and not has_env):
-            from .kernels.megakernel import make_render_step_pallas
-
-            _dbg("megakernel(chunked parity)", tris=t)
-            return make_render_step_pallas(
-                cfg, buffers, global_shape=global_shape,
-                block_rows=cfg.pallas_block_rows,
-            )
-        # chunked megakernel has no NEE/DOF/GGX/dielectric/textures/env:
-        # fall through to the jnp wavefront below
-    if backend == "pallas" and traversal == "bvh":
-        # packet-traversal kernel returns the full shade payload (no XLA
-        # gathers; textured scenes add uv/texid planes and the shade phase
-        # does ONE bilinear pool gather per wave). NEE shadow rays use the
-        # dedicated any-hit occlusion kernel.
-        from .accel.wide import build_wide_from_buffers
-        from .kernels.bvh_packet import make_packet_occlusion, make_packet_trace
-
-        wide = build_wide_from_buffers(buffers)
-        scene_bytes = wide.nodes.nbytes + wide.tris.nbytes + (
-            wide.tris_aux.nbytes if wide.tris_aux is not None else 0
-        )
-        stream = (cfg.stream_tris if cfg.stream_tris is not None
-                  else scene_bytes > cfg.vmem_scene_budget)
-        # combined-budget check for the fused kernel: env map, texture
-        # atlas and light-select operands each fit their own cap, but
-        # stacked next to a near-budget scene they must not compile the
-        # kernel over VMEM — stream triangles when scene+extras overflow,
-        # and if nodes+extras STILL overflow, take the wavefront loop
-        # (whose packet kernels hold only the scene in VMEM; env/tex/
-        # lights run at the XLA level between bounces there)
-        from .kernels.imgfetch import fused_extra_vmem_bytes
-
-        # a DEFERRED oversized env costs no resident map VMEM (the kernel
-        # emits miss/NEE records instead of holding it); under NEE only
-        # the pooled coarse proposal's CDF operands stay resident
-        extra_vmem = fused_extra_vmem_bytes(
-            n_lights if not many_lights else 0, env,
-            buffers.textures if has_tex else None, cfg.use_nee,
-            env_deferred=env_deferred, spp=cfg.spp_per_step,
-            max_depth=cfg.max_depth, block_rows=cfg.packet_block_rows)
-        fused_stream = (cfg.stream_tris if cfg.stream_tris is not None
-                        else scene_bytes + extra_vmem
-                        > cfg.vmem_scene_budget)
-        fused_resident = (wide.nodes.nbytes if fused_stream
-                          else scene_bytes) + extra_vmem
-        fused_over_budget = fused_resident > cfg.vmem_scene_budget
-        # NEE + spp_chunk > 1 routes FUSED since round 4: the round-3
-        # preference for the sorted wavefront loop (0.20 vs 0.28 s/step,
-        # 100k MIS chunk=8) predated the SMEM node tables; re-measured
-        # with them (benchmarks/probe_chunk_nee.py) the fused kernel wins
-        # 1.30x on that exact config (0.269 vs 0.349 s/step) and 3.79x on
-        # the city 2048^2 chunk=4 bench (4.20 vs 1.11 Mrays/s). The fused
-        # kernel ignores spp_chunk (in-lane sample regeneration); sample
-        # streams are chunk-layout invariant (test_spp_chunk_invariance)
-        # so the routing flip is image-safe.
-        # env NEE on OVERSIZED maps prefers the wavefront loop (round-5
-        # on-device measurement, benchmarks/probe_envnee_rows.py +
-        # PROBE_ENVNEE_ROWS_r05.json): the fused deferred-NEE route runs
-        # 0.65 (streamed) / 0.69 (resident, raised Mosaic cap) Mrays/s
-        # on the 100k/2048x1024 bench vs ~0.9 for the wavefront loop —
-        # the per-(sample, bounce) record planes multiply the post-kernel
-        # radiance gather by max_depth (16.7M bilinear fetches/step at
-        # 512^2 spp8 d8), where the wavefront loop gathers only live NEE
-        # directions per bounce. The fused machinery stays available via
-        # explicit knobs (megakernel_bvh defer_env_nee) for configs that
-        # need fusion; non-NEE deferred env misses stay fused (4.77).
-        prefer_wavefront = ((cfg.use_nee and many_lights)
-                            or (cfg.use_nee and env_deferred)
-                            or fused_over_budget)
-        if (cfg.megakernel_regen and not prefer_wavefront
-                and not tex_blocks_fused):
-            # env skies, env NEE and map_Kd textures fuse via the
-            # separable one-hot MXU machinery (kernels/imgfetch.py);
-            # OVERSIZED env maps stay fused too via deferred miss
-            # records (megakernel_bvh defer_env) and — since round 5 —
-            # deferred per-bounce env-NEE records with a resident pooled
-            # proposal CDF (defer_env_nee); >16 textures / >2MB atlases
-            # route to the wavefront loop below, whose packet kernels
-            # carry uv/texid planes and fetch at the XLA level between
-            # bounces.
-            # fused BVH regen megakernel: whole spp per kernel call with
-            # in-lane sample regeneration and in-kernel packet traversal —
-            # no per-bounce relaunch, no dead lanes, no bounce sort
-            # (1.2-1.8x over the wavefront loop on 100k-tri GI); NEE runs
-            # in-kernel up to 16384 lights (MXU select; two-level
-            # bucketed past 1024). Beyond the VMEM budget the
-            # triangle rows stream from HBM through a 2-slot DMA ring
-            # (leaf pops prefetch the next leaf behind their own
-            # intersection tests — 1.25x over the round-3 blocking DMA,
-            # probe_stream_overlap.py); node rows stay VMEM-resident
-            # either way.
-            from .kernels.megakernel_bvh import make_bvh_regen_render_step
-
-            _dbg("megakernel_bvh(fused regen)", tris=t, lights=n_lights,
-                 stream=fused_stream, extra_vmem=extra_vmem,
-                 env_deferred=env_deferred)
-            return make_bvh_regen_render_step(
-                cfg, buffers, wide=wide, global_shape=global_shape,
-                block_rows=cfg.packet_block_rows, stream_tris=fused_stream,
-                # SMEM leaf ring: the per-leaf-pop scalar chain (dynamic
-                # VMEM row load + 128 lane extracts, ~191 ns/pop) becomes
-                # free SMEM scalar loads behind the same peek-prefetch
-                # ring. Measured bitwise-identical and faster on every
-                # workload class: Cornell 1.22x, 100k GI 1.14x, streamed
-                # 500k 1.28x, textured streamed 1.51x
-                # (benchmarks/results/PROBE_SMEM_LEAF_AB_r04.json).
-                smem_leaf=True,
-            )
-        _dbg("wavefront(packet kernels)", tris=t, lights=n_lights,
-             stream=stream, prefer_wavefront=prefer_wavefront,
-             fused_over_budget=fused_over_budget,
-             tex_blocks_fused=tex_blocks_fused)
-        cfg = _auto_chunk_cfg(cfg)
-        return make_render_step(
-            cfg, buffers, global_shape=global_shape,
-            **packet_trace_kwargs(cfg, wide, stream=stream),
-        )
-    # jnp traversal is the BVH fallback on CPU (correctness oracle)
-    _dbg("wavefront(jnp)", backend=backend, traversal=traversal, tris=t)
+        _dbg("megakernel", tris=buffers.num_tris)
+        return make_render_step_gpu(cfg, buffers, global_shape=global_shape)
+    _dbg("wavefront(jnp)", traversal=traversal, tris=buffers.num_tris)
     return make_render_step(
         cfg, buffers, trace_fn=select_trace_fn(cfg, buffers),
         global_shape=global_shape,
     )
-
-
-def instanced_wavefront_kwargs(cfg: RenderConfig, instances,
-                               _prebuilt=None):
-    """Instanced-scene dispatch (shared BLASes + per-instance object-to-
-    world transforms — the general form of the reference's TLAS-over-one-
-    BLAS, ref main.cpp:521-538). Returns (make_render_step kwargs,
-    flat_buffers), shared by the single-chip and row-sharded drivers.
-
-    On pallas the in-kernel two-level traversal (kernels/bvh_tlas.py)
-    slots into the wavefront loop as the payload trace (shadow rays for
-    NEE trace through the same payload kernel); materials/lights/shading
-    come from the flattened world-space buffers, which the jnp backend
-    also uses as the single-level correctness oracle."""
-    from .accel.instances import flatten_instances
-    from .scene import upload
-
-    if _prebuilt is not None:
-        flat_buffers, tl = _prebuilt
-    else:
-        flat_buffers = upload(flatten_instances(instances))
-        tl = None
-    backend, _ = _resolve(cfg, flat_buffers)
-    if backend == "pallas":
-        from .accel.tlas import build_two_level
-        from .kernels.bvh_tlas import (
-            make_two_level_occlusion, make_two_level_trace,
-        )
-
-        if tl is None:
-            tl = build_two_level(instances)
-        trace = make_two_level_trace(
-            tl, t_min=cfg.t_min, block_rows=cfg.packet_block_rows
-        )
-        kwargs = {"trace_payload_fn": trace}
-        if cfg.use_nee:
-            # dedicated any-hit kernel for shadow rays (lanes retire on
-            # first hit) instead of the full-payload fallback
-            kwargs["occlusion_fn"] = make_two_level_occlusion(
-                tl, t_min=cfg.t_min, block_rows=cfg.packet_block_rows
-            )
-        _dbg("wavefront(tlas packet)", instances=len(instances),
-             tris=flat_buffers.num_tris, nee=cfg.use_nee)
-        return kwargs, flat_buffers
-    _dbg("wavefront(jnp flattened)", instances=len(instances),
-         tris=flat_buffers.num_tris)
-    return (
-        {"trace_fn": select_trace_fn(cfg, flat_buffers)}, flat_buffers
-    )
-
-
-def _instanced_fused_blockers(cfg: RenderConfig, flat_buffers, tl) -> dict:
-    """Gates that keep an instanced config OFF the fused two-level regen
-    megakernel (mirrors the single-level bvh branch in
-    select_render_step). Empty dict == fused kernel takes it."""
-    import numpy as np
-
-    blockers = {}
-    if not cfg.megakernel_regen:
-        blockers["megakernel_regen"] = False
-    t = flat_buffers.num_tris
-    n_lights = 0
-    if cfg.use_nee:
-        from .kernels.imgfetch import MAX_KERNEL_LIGHTS
-
-        em = (np.asarray(flat_buffers.er)[:t] > 0) | (
-            np.asarray(flat_buffers.eg)[:t] > 0) | (
-            np.asarray(flat_buffers.eb)[:t] > 0)
-        n_lights = int(em.sum())
-        if n_lights > MAX_KERNEL_LIGHTS:
-            blockers["many_lights"] = n_lights
-        # NEE + spp_chunk > 1 stays fused (round 4): the fused kernel
-        # ignores spp_chunk and beats the sorted wavefront loop on every
-        # re-measured chunked-NEE config (probe_chunk_nee.py)
-    env = getattr(flat_buffers, "env", None)
-    env_deferred = False
-    if env is not None:
-        from .kernels.imgfetch import env_fits_in_kernel
-
-        # oversized maps DEFER the radiance gathers inside the fused
-        # kernel (megakernel_bvh defer_env / defer_env_nee) — same rule
-        # as the single-level branch; nothing blocks fusion
-        env_deferred = not env_fits_in_kernel(env)
-    if flat_buffers.has_textures:
-        from .kernels.imgfetch import atlas_fits_in_kernel
-
-        if not atlas_fits_in_kernel(flat_buffers.textures):
-            blockers["tex_blocks_fused"] = True
-    # combined VMEM budget: node/inst tables usually live in SMEM
-    # (bvh_tlas._smem_fits); tri/aux rows + env/atlas/light operands
-    # must fit VMEM together
-    from .kernels.bvh_tlas import _smem_fits
-    from .kernels.imgfetch import fused_extra_vmem_bytes
-
-    extra = fused_extra_vmem_bytes(
-        n_lights, env,
-        flat_buffers.textures if flat_buffers.has_textures
-        else None, cfg.use_nee, env_deferred=env_deferred,
-        spp=cfg.spp_per_step, max_depth=cfg.max_depth,
-        block_rows=cfg.packet_block_rows)
-    resident = tl.tris.nbytes + (
-        tl.tris_aux.nbytes if tl.tris_aux is not None else 0) + extra
-    # n_extra_inst=1: the fused kernel appends an identity world row
-    # before making its own SMEM decision — budget the same tl it sees
-    if not _smem_fits(tl, n_extra_inst=1):
-        resident += tl.nodes.nbytes + tl.inst.nbytes + 128 * 4
-    if resident > cfg.vmem_scene_budget:
-        blockers["fused_over_budget"] = resident
-    return blockers
 
 
 def select_instanced_render_step(
@@ -484,98 +122,14 @@ def select_instanced_render_step(
     instances,
     global_shape: Optional[tuple] = None,
 ):
-    """Single-chip (or per-shard) instanced dispatch: the FUSED two-level
-    regen megakernel when the config's capabilities fit in-kernel
-    (megakernel_bvh with tl= — no per-bounce relaunch/dead lanes/sorts,
-    ref main.cpp:514-538 + raygen.rgen:41-91), else the wavefront loop
-    with the TLAS packet kernels. Returns (render_step, flat_buffers)."""
+    """Instanced scenes (shared BLASes + per-instance object-to-world
+    transforms, the general form of the reference's TLAS-over-one-BLAS,
+    ref main.cpp:521-538) are flattened into world-space triangles and
+    dispatched like any other scene. Returns (render_step, flat_buffers)."""
     from .accel.instances import flatten_instances
-    from .integrate.wavefront import make_render_step
     from .scene import upload
 
     flat_buffers = upload(flatten_instances(instances))
-    backend, _ = _resolve(cfg, flat_buffers)
-    if backend == "pallas":
-        from .accel.tlas import build_two_level
-
-        tl = build_two_level(instances)
-        blockers = _instanced_fused_blockers(cfg, flat_buffers, tl)
-        if not blockers:
-            from .kernels.megakernel_bvh import make_bvh_regen_render_step
-
-            _dbg("megakernel_bvh(fused two-level regen)",
-                 instances=len(instances), tris=flat_buffers.num_tris,
-                 nodes=int(tl.nodes.shape[0]))
-            step = make_bvh_regen_render_step(
-                cfg, flat_buffers, tl=tl, global_shape=global_shape,
-                block_rows=cfg.tlas_block_rows,
-                # round 5: with the deferred instance transform the SMEM
-                # leaf ring WINS on two-level too (1.586 -> 1.857 with
-                # 8-row packets, bitwise-identical; the round-4 14%
-                # regression was masked by the per-leaf-pop transform
-                # chain the deferral removed) — leaf pops are 59% of
-                # this scene class's pops (probe_tlas_pops.py)
-                smem_leaf=True,
-            )
-            return step, flat_buffers
-        _dbg("wavefront(tlas packet; fused blocked)", **blockers)
-        kwargs, flat_buffers = instanced_wavefront_kwargs(
-            cfg, instances, _prebuilt=(flat_buffers, tl))
-        cfg = _auto_chunk_cfg(cfg)
-    else:
-        kwargs, flat_buffers = instanced_wavefront_kwargs(
-            cfg, instances, _prebuilt=(flat_buffers, None))
-    step = make_render_step(
-        cfg, flat_buffers, global_shape=global_shape, **kwargs
-    )
+    _dbg("instanced(flattened)", instances=len(instances))
+    step = select_render_step(cfg, flat_buffers, global_shape=global_shape)
     return step, flat_buffers
-
-
-def packet_trace_kwargs(cfg: RenderConfig, wide, stream: bool) -> dict:
-    """Packet-kernel trace functions for the wavefront loop, as
-    make_render_step kwargs ({trace_payload_fn, occlusion_fn})."""
-    from .kernels.bvh_packet import make_packet_occlusion, make_packet_trace
-
-    if stream:
-        # triangle rows stay in HBM; the v2 kernel's leaf queue issues
-        # a DMA prefetch at push time and waits at consumption (~8%
-        # over VMEM-resident on a 100k-tri wave; removes the ~150k-tri
-        # VMEM cap entirely — ref traceRayEXT traces any device-memory
-        # BVH, raygen.rgen:63 / main.cpp:414-455)
-        from .kernels.bvh_packet2 import make_packet_trace2
-
-        trace_payload = make_packet_trace2(
-            wide, t_min=cfg.t_min, stream_tris=True
-        )
-    else:
-        trace_payload = make_packet_trace(
-            wide, t_min=cfg.t_min, block_rows=cfg.packet_block_rows
-        )
-    occlusion = (
-        make_packet_occlusion(
-            wide, t_min=cfg.t_min, block_rows=cfg.packet_block_rows
-        )
-        if cfg.use_nee and not stream
-        else None  # streamed scenes shadow-trace via the payload kernel
-    )
-    return {"trace_payload_fn": trace_payload, "occlusion_fn": occlusion}
-
-
-def select_wavefront_kwargs(cfg: RenderConfig, buffers) -> dict:
-    """Trace-implementation kwargs for a wavefront-loop integrator
-    (make_render_step): the Pallas packet kernels on pallas+bvh scenes,
-    the jnp trace otherwise. Shared by select_render_step and the
-    adaptive sampler (integrate/adaptive.py), so --adaptive on a big TPU
-    scene traces through the same packet kernels as the full-frame loop."""
-    backend, traversal = _resolve(cfg, buffers)
-    if backend == "pallas" and traversal == "bvh":
-        from .accel.wide import build_wide_from_buffers
-
-        wide = build_wide_from_buffers(buffers)
-        scene_bytes = wide.nodes.nbytes + wide.tris.nbytes + (
-            wide.tris_aux.nbytes if wide.tris_aux is not None else 0
-        )
-        stream = (cfg.stream_tris if cfg.stream_tris is not None
-                  else scene_bytes > cfg.vmem_scene_budget)
-        return packet_trace_kwargs(cfg, wide, stream=stream)
-    return {"trace_fn": select_trace_fn(cfg, buffers)}

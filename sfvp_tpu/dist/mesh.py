@@ -3,15 +3,15 @@
 Design (SURVEY.md §2 parallelism table, BASELINE config 5):
 
   - the accumulator ``(H, W, 3)`` is sharded along rows, ``P(AXIS)``;
-    each chip owns ``H / n_devices`` contiguous rows;
-  - the per-shard step is the UNMODIFIED single-chip ``render_step``:
+    each device owns ``H / n_devices`` contiguous rows;
+  - the per-shard step is the UNMODIFIED single-device ``render_step``:
     it already takes ``row0`` (the global row offset) and generates
-    rays in global pixel coordinates, so an N-chip render is
-    pixel-identical to the 1-chip render of the same config
+    rays in global pixel coordinates, so an N-device render is
+    pixel-identical to the 1-device render of the same config
     (pinned by tests/test_dist.py::test_sharded_equals_single);
-  - chips own disjoint pixels, so the image needs NO collective at all;
-    only the scalar Mrays counter crosses chips (one f32 ``psum`` over
-    ICI per step);
+  - devices own disjoint pixels, so the image needs NO collective at
+    all; only the scalar Mrays counter crosses devices (one f32 ``psum``
+    per step);
   - ``frame`` is replicated and advances identically everywhere.
 
 The reference has no distributed analog — its launch is one
@@ -32,10 +32,7 @@ from ..integrate.wavefront import RenderState, make_render_step
 
 AXIS = "rows"
 
-try:  # jax >= 0.4.35 exposes shard_map at the top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+shard_map = jax.shard_map
 
 
 def default_mesh(devices=None) -> Mesh:
@@ -54,19 +51,17 @@ def make_sharded_render_step(
     mesh: Mesh,
     trace_fn: Optional[Callable] = None,
     trace_payload_fn: Optional[Callable] = None,
-    occlusion_fn: Optional[Callable] = None,
-    local_step: Optional[Callable] = None,
 ):
     """Returns ``(step, init)``:
 
     ``init() -> RenderState`` with the accumulator row-sharded over
     ``mesh``; ``step(state) -> state`` runs one progressive step on every
-    chip's own rows (jit-compiled shard_map; scene buffers are closed over
+    device's own rows (jit-compiled shard_map; scene buffers are closed over
     and replicated).
 
     Explicit ``trace_fn``/``trace_payload_fn`` pin the integrator's trace
     implementation (tests); by default the backend dispatch picks it
-    exactly as the single-chip ``Renderer`` does.
+    exactly as the single-device ``Renderer`` does.
     """
     n = int(mesh.devices.size)
     if cfg.height % n != 0:
@@ -77,16 +72,13 @@ def make_sharded_render_step(
     h_local = cfg.height // n
     gshape = (cfg.height, cfg.width)
 
-    if local_step is not None:
-        pass  # pre-built per-shard step (instanced dispatch)
-    elif trace_fn is not None or trace_payload_fn is not None:
+    if trace_fn is not None or trace_payload_fn is not None:
         local_step = make_render_step(
             cfg,
             buffers,
             trace_fn=trace_fn,
             global_shape=gshape,
             trace_payload_fn=trace_payload_fn,
-            occlusion_fn=occlusion_fn,
         )
     else:
         from ..dispatch import select_render_step
@@ -102,7 +94,7 @@ def make_sharded_render_step(
         )
         out = local_step(local, row0)
         # disjoint pixel tiles: the image itself needs no collective;
-        # only the segment counter is reduced (one scalar psum over ICI)
+        # only the segment counter is reduced (one scalar psum)
         delta = jax.lax.psum(out.mrays, AXIS)
         return RenderState(
             accum=out.accum, frame=out.frame, mrays=state.mrays + delta
@@ -140,7 +132,7 @@ def make_sharded_render_step(
 
 
 class DistRenderer:
-    """Multi-chip counterpart of ``render.driver.Renderer``: same API
+    """Multi-device counterpart of ``render.driver.Renderer``: same API
     (step/image/run/resume), state row-sharded over a device mesh,
     per-shard checkpoints (no host gather on the checkpoint path)."""
 
@@ -165,33 +157,24 @@ class DistRenderer:
         self.cfg = cfg
         self.scene = scene
         self.mesh = mesh if mesh is not None else default_mesh()
-        occlusion_fn = None
-        local_step = None
         if isinstance(scene, (list, tuple)):
-            # instanced scene: same dispatch as the single-chip Renderer —
-            # the fused two-level regen megakernel when capabilities fit,
-            # else TLAS payload trace (+ any-hit occlusion for NEE) on
-            # pallas, flattened oracle on jnp; every path takes row0
-            from ..dispatch import select_instanced_render_step
+            # instanced scene: flattened, as the single-device Renderer
+            # does (dispatch.select_instanced_render_step)
+            from ..accel.instances import flatten_instances
 
             if trace_fn is not None or trace_payload_fn is not None:
                 raise ValueError(
                     "explicit trace fns cannot be combined with an "
                     "instanced scene"
                 )
-            local_step, self.buffers = select_instanced_render_step(
-                cfg, scene, global_shape=(cfg.height, cfg.width)
-            )
-        else:
-            self.buffers = upload(scene)
+            scene = flatten_instances(scene)
+        self.buffers = upload(scene)
         self._step, init = make_sharded_render_step(
             cfg,
             self.buffers,
             self.mesh,
             trace_fn=trace_fn,
             trace_payload_fn=trace_payload_fn,
-            occlusion_fn=occlusion_fn,
-            local_step=local_step,
         )
         self.state = init()
 

@@ -1,7 +1,8 @@
 """Multi-host (DCN) plumbing for the dist package.
 
-Single-host multi-chip rendering needs nothing beyond dist/mesh.py (XLA
-drives all local chips over ICI). Across HOSTS, JAX requires the
+Single-host multi-device rendering needs nothing beyond dist/mesh.py
+(XLA drives all local devices; on GPUs the psum goes through NCCL).
+Across HOSTS, JAX requires the
 distributed runtime before any device use; this module wraps that
 bootstrap and the two places where the row-sharded renderer touches
 process-locality:
@@ -12,8 +13,8 @@ process-locality:
 
 Design notes (scaling-book recipe): the pixel rows stay tile-disjoint, so
 steady-state communication is still ZERO — DCN only carries the scalar
-Mrays psum and the final frame gather. A v5e-256 style deployment renders
-with the exact same shard_map program as one chip.
+Mrays psum and the final frame gather. A many-host deployment renders
+with the exact same shard_map program as one device.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Adaptive sampling — variance-driven progressive rendering (extension;
 the reference samples every pixel uniformly forever, ref raygen.rgen:43).
 
-TPU-native formulation: per-pixel *continuous* sample counts are dynamic
+Formulation: per-pixel *continuous* sample counts are dynamic
 shapes, so adaptivity happens at TILE granularity with a STATIC budget:
 every adaptive step renders exactly K = ceil(frac * n_tiles) tiles — the
 ones with the highest estimated relative variance of their pixel means —
@@ -57,7 +57,6 @@ def make_adaptive_steps(
     frac: float = 0.25,
     tile: int = 16,
     trace_fn=None,
-    trace_kwargs=None,
 ):
     """Returns (uniform_step, adaptive_step), both
     AdaptiveState -> AdaptiveState and jittable:
@@ -71,20 +70,12 @@ def make_adaptive_steps(
         raise ValueError(
             f"image {w}x{h} not divisible by adaptive tile size {tile}"
         )
-    from ..dispatch import select_wavefront_kwargs
-
-    if trace_fn is not None:
-        trace_kwargs = {"trace_fn": trace_fn}
-    elif trace_kwargs is None:
-        # same trace selection as the full-frame loop: on pallas+bvh
-        # scenes this is the packet payload kernel — the adaptive tile
-        # decode already produces packet-coherent waves (explicit
-        # trace_kwargs carry the instanced TLAS trace from
-        # dispatch.instanced_wavefront_kwargs)
-        trace_kwargs = select_wavefront_kwargs(cfg, buffers)
+    from ..dispatch import select_trace_fn
     from .wavefront import make_render_step
 
-    base_step = make_render_step(cfg, buffers, **trace_kwargs)
+    if trace_fn is None:
+        trace_fn = select_trace_fn(cfg, buffers)
+    base_step = make_render_step(cfg, buffers, trace_fn=trace_fn)
     render_pixels = base_step.render_pixels
     spp = np.float32(cfg.spp_per_step)
 
@@ -152,17 +143,14 @@ class AdaptiveRenderer:
         self.frac = frac
         self.tile = tile
         self.warmup = warmup
-        trace_kwargs = None
         if isinstance(scene, (list, tuple)):
-            # instanced scene: same dispatch as Renderer/DistRenderer
-            from ..dispatch import instanced_wavefront_kwargs
+            # instanced scene: flattened, as Renderer/DistRenderer do
+            from ..accel.instances import flatten_instances
 
-            trace_kwargs, self.buffers = instanced_wavefront_kwargs(
-                cfg, scene)
-        else:
-            self.buffers = upload(scene)
+            scene = flatten_instances(scene)
+        self.buffers = upload(scene)
         uni, ada = make_adaptive_steps(cfg, self.buffers, frac=frac,
-                                       tile=tile, trace_kwargs=trace_kwargs)
+                                       tile=tile)
         self._uniform = jax.jit(uni, donate_argnums=(0,))
         self._adaptive = jax.jit(ada, donate_argnums=(0,))
         self.state = init_adaptive_state(cfg.height, cfg.width)

@@ -89,9 +89,7 @@ def sample_light(lights: LightTable, r_sel, r1, r2):
             r_sel[..., None] > lights.cdf[(None,) * r_sel.ndim], axis=-1
         ).astype(jnp.int32)
     else:
-        # large light counts (the megakernels cap at MAX_KERNEL_LIGHTS
-        # = 1024 via the one-hot MXU select; beyond that dispatch routes
-        # here): O(log L) vectorized CDF search
+        # large light counts: O(log L) vectorized CDF search
         li = jnp.searchsorted(lights.cdf, r_sel, side="right").astype(
             jnp.int32)
     li = jnp.minimum(li, lights.num - 1)
@@ -155,12 +153,14 @@ def _dilate3x3(lum):
     return np.max([pad[:-2], pad[1:-1], pad[2:]], axis=0)
 
 
-# Proposal-grid height cap for OVERSIZED env maps (deferred env NEE in
-# the fused kernels): the coarse (<= 256 x 512) grid's packed CDF
-# operands stay VMEM-resident while the full-resolution RADIANCE fetch
-# is deferred to one post-kernel XLA gather. The estimator divides by
-# the proposal's own exact pdf, so any full-support proposal is
-# unbiased — coarser just means slightly noisier env sampling.
+# Env maps up to this many bytes as a packed (3W, H) f32 image (512x256)
+# sample from their exact per-texel CDF; larger ones from a pooled coarse
+# proposal grid of at most ENV_DIST_MAX_H rows. The estimator divides by
+# the proposal's own exact pdf, so any full-support proposal is unbiased;
+# coarser just means slightly noisier env sampling. The rule is kept as it
+# was set when these maps had to fit a kernel's on-chip memory, so that no
+# image changes.
+ENV_EXACT_MAX_BYTES = 2 * 1024 * 1024
 ENV_DIST_MAX_H = 256
 
 
@@ -171,8 +171,8 @@ def build_env_distribution(table, max_h=None) -> EnvDistribution:
     pooling fine texel weights into the coarse cell containing each fine
     texel's center. The sampler then importance-samples at coarse
     granularity (uniform jitter inside the coarse cell) while radiance
-    is still fetched at full resolution — an unbiased proposal for maps
-    too big to keep resident in a kernel."""
+    is still fetched at full resolution — an unbiased proposal for large
+    maps."""
     h = int(np.asarray(table.height)[0])
     w = int(np.asarray(table.width)[0])
     r = np.asarray(table.tr)[: h * w].reshape(h, w)
@@ -210,15 +210,11 @@ def build_env_distribution(table, max_h=None) -> EnvDistribution:
 
 
 def env_distribution_for(table) -> EnvDistribution:
-    """THE proposal distribution for env NEE, shared by the wavefront
-    integrator and the fused kernels (identical CDFs keep their sample
-    streams bitwise-comparable): the exact per-texel CDF when the packed
-    map is kernel-resident, else the pooled coarse proposal whose CDF
-    operands fit VMEM (deferred env NEE, megakernel_bvh/megakernel_regen
-    defer_env)."""
-    from ..kernels.imgfetch import env_fits_in_kernel
-
-    if env_fits_in_kernel(table):
+    """THE proposal distribution for env NEE: the exact per-texel CDF for
+    maps up to ENV_EXACT_MAX_BYTES, else the pooled coarse proposal."""
+    h = int(np.asarray(table.height)[0])
+    w = int(np.asarray(table.width)[0])
+    if 3 * w * h * 4 <= ENV_EXACT_MAX_BYTES:
         return build_env_distribution(table)
     return build_env_distribution(table, max_h=ENV_DIST_MAX_H)
 

@@ -1,12 +1,13 @@
 """Wavefront path-tracing integrator.
 
-This is the TPU-native reformulation of the reference's per-pixel megakernel
-(ref shaders/raygen.rgen:41-91): instead of one GPU thread looping over
-samples and bounces, a *wave* of rays (pixels x spp_chunk samples) advances
-in lockstep through trace -> shade phases under ``lax.scan``; terminated
-lanes are masked. All ray state is SoA — component tuples of (N,) arrays —
-so every VPU op runs with dense lanes (see utils/vec.py). Everything is
-static-shaped and jit-compiles to fused XLA.
+This is the wavefront reformulation of the reference's per-pixel
+megakernel (ref shaders/raygen.rgen:41-91): instead of one GPU thread
+looping over samples and bounces, a *wave* of rays (pixels x spp_chunk
+samples) advances in lockstep through trace -> shade phases under
+``lax.scan``; terminated lanes are masked. All ray state is SoA —
+component tuples of (N,) arrays (see utils/vec.py). Everything is
+static-shaped and jit-compiles to fused XLA. It is the reference the fused
+Cornell kernel (kernels/megakernel.py) is tested against.
 
 Parity-mode semantics preserved exactly (see SURVEY.md §7 quirks):
   - color += weight * emission on EVERY segment, including the miss segment
@@ -55,23 +56,6 @@ class RenderState(NamedTuple):
     accum: jnp.ndarray         # (H, W, 3) f32 running mean over steps
     frame: jnp.ndarray         # ()      i32 progressive step counter
     mrays: jnp.ndarray         # ()      f32 cumulative traced segments / 1e6
-
-
-def tile_swizzle_inverse(h: int, w: int, ts: int):
-    """Static inverse permutation of the ts x ts pixel-tile swizzle used by
-    the packet/megakernel paths: lane order -> row-major pixel order.
-    Shared by every integrator that swizzles (keep the three mappings —
-    this inverse, the wavefront forward map, and the in-kernel forward
-    map — in sync)."""
-    ii = np.arange(h * w)
-    tpw = w // ts
-    perm = (
-        ((ii // (ts * ts)) // tpw * ts + (ii % (ts * ts)) // ts) * w
-        + ((ii // (ts * ts)) % tpw * ts + (ii % (ts * ts)) % ts)
-    )
-    inv = np.empty_like(perm)
-    inv[perm] = ii
-    return jnp.asarray(inv.astype(np.int32))
 
 
 def init_state(height: int, width: int) -> RenderState:
@@ -135,10 +119,14 @@ def make_render_step(
     ``lights``: LightTable for NEE; built automatically from the scene
     buffers when cfg.use_nee and not provided.
 
-    ``trace_payload_fn(o, d, t_max, active) -> Payload``: alternative trace
-    that returns the full shade payload directly (the Pallas BVH packet
-    kernel) — avoids XLA gathers entirely. Mutually exclusive with
-    trace_fn.
+    ``trace_payload_fn(o, d, t_max, active) -> Payload`` and the optional
+    any-hit ``occlusion_fn(o, d, t_max, active) -> bool`` are the hook a
+    fused GPU traversal plugs into (ROADMAP speed item 3): the trace
+    returns the full shade payload (kernels/intersect.py Payload), so the
+    shade phase needs no gathers, and rays are re-sorted every bounce
+    (direction octant, position morton, and the material when the scene
+    mixes them) so neighbouring rays traverse alike. Mutually exclusive
+    with trace_fn.
     """
     import numpy as _np
 
@@ -175,9 +163,8 @@ def make_render_step(
     )
     env_dist = None
     if use_env_nee:
-        # shared proposal rule (exact texel CDF for resident-size maps, a
-        # pooled coarse proposal for oversized ones) so the fused kernels'
-        # deferred env NEE and this oracle draw identical sample streams
+        # exact texel CDF for small maps, a pooled coarse proposal for
+        # oversized ones (lights.env_distribution_for)
         from .lights import env_distribution_for
 
         env_dist = env_distribution_for(scene.env)
@@ -192,12 +179,8 @@ def make_render_step(
     use_dof = cfg.camera.lens_radius > 0.0
     use_env = getattr(scene, "env", None) is not None
     use_payload = trace_payload_fn is not None
-    do_sort = use_payload and cfg.sort_bounce_rays
-    sort_material = (
-        do_sort and cfg.sort_material_key
-        and (has_mirrors or has_glossy or has_diel)
-    )
-    if do_sort:
+    sort_material = use_payload and (has_mirrors or has_glossy or has_diel)
+    if use_payload:
         # static scene bounds for the morton sort key
         cols = {
             f: _np.asarray(getattr(scene, f))[: scene.num_tris]
@@ -216,13 +199,12 @@ def make_render_step(
 
     def _sort_key(o, d, done, mtype):
         """(material << 24) | (direction octant << 21) | 7-bit-per-axis
-        position morton; dead rays get the max key so they compact into
-        all-dead packets (which the packet kernel retires in one pop).
-        The material bits implement BASELINE config 5's material-sorted
-        queues: rays leaving mirror vs diffuse surfaces have disjoint
-        direction structure, so splitting them sharpens packet frusta.
+        position morton; dead rays get the max key so they compact to the
+        end of the wave. The material bits implement BASELINE config 5's
+        material-sorted queues: rays leaving mirror vs diffuse surfaces
+        have disjoint direction structure.
         Sorting never changes the image (colors scatter back by wave
-        slot); it is purely an execution knob."""
+        slot)."""
 
         def q7(c, a):
             x = jnp.clip((c - lo[a]) * inv_extent[a], 0.0, 1.0)
@@ -246,18 +228,14 @@ def make_render_step(
             + (d[1] >= 0).astype(jnp.int32) * 2
             + (d[2] >= 0).astype(jnp.int32)
         )
-        # measured on the 100k-tri sphere: octant-major beats position-major
-        # (16.0s vs 20.1s/step) AND beats a finer 2-bit/axis direction key
-        # (8.8s vs 11.0s) — more direction buckets fragment position
-        # locality within packets
         key = (octant << 21) | morton
         if sort_material:
             key = key | (jnp.clip(mtype.astype(jnp.int32), 0, 3) << 24)
         return jnp.where(done, jnp.int32(2**30), key)
 
     def _shade_from_payload(pay):
-        """Derive shading inputs from a packet-trace Payload (no gathers
-        except the optional texel fetch); same math as
+        """Derive shading inputs from a trace Payload (no gathers except
+        the optional texel fetch); same math as
         shade_inputs/closesthit.rchit."""
         miss = jnp.isinf(pay.t)  # noqa: F841 (returned below)
         w = 1.0 - pay.u - pay.v
@@ -268,13 +246,13 @@ def make_render_step(
         nrm = vec.cross(vec.sub(pay.p1, pay.p0), vec.sub(pay.p2, pay.p0))
         inv_len = jax.lax.rsqrt(jnp.maximum(vec.dot(nrm, nrm), 1e-30))
         normal = vec.scale(nrm, -inv_len)
-        # the wide layout stores Ks in the albedo lanes for mirrors/glossy
-        # and packs mtype + roughness into one lane (accel/wide.py)
+        # Payload stores Ks in the albedo for mirrors/glossy and packs
+        # mtype + roughness into one value (as accel/wide.py does)
         mtype = jnp.floor(pay.mtype)
         rough = pay.mtype - mtype
         diffuse = pay.albedo
         if pay.texid is not None and getattr(scene, "textures", None) is not None:
-            # map_Kd modulation: the kernel interpolated the vt at the hit
+            # map_Kd modulation: the trace interpolated the vt at the hit
             # (Payload.texu/texv/texid), so one bilinear pool gather per
             # wave finishes the job — mirroring shade_inputs. Mirror and
             # glossy lanes are unaffected (their brdfs read ``spec``,
@@ -291,8 +269,7 @@ def make_render_step(
 
     def _shadow_occluded(position, wl, dist, shadow_q):
         if occlusion_fn is not None:
-            # dedicated any-hit kernel (no payload carries, lanes retire
-            # on first hit)
+            # dedicated any-hit test (no payload carries)
             return occlusion_fn(
                 position, wl, dist * np.float32(1.0 - 1e-3), active=shadow_q
             )
@@ -310,9 +287,9 @@ def make_render_step(
     def depth_body(carry, depth_idx):
         (o, d, weight, seed, done, color, segs, count_emit, pdf_prev,
          prev_mtype, pix) = carry
-        if do_sort:
-            # depth 0 is skipped: primary rays are tile-swizzle-coherent
-            # and all alive, so the 17-array sort is pure overhead there
+        if use_payload:
+            # depth 0 is skipped: primary rays are coherent and all
+            # alive, so the 17-array sort is pure overhead there
             def _sorted(args):
                 key = _sort_key(args[0:3], args[3:6], args[13] > 0,
                                 prev_mtype)
@@ -691,7 +668,7 @@ def make_render_step(
                 jnp.arange(cfg.max_depth, dtype=jnp.int32),
             )
         )
-        if do_sort:
+        if use_payload:
             # rays were permuted by the per-bounce sorts; scatter colors
             # back to wave-slot order (pix is a permutation of arange(m))
             color = tuple(
@@ -700,11 +677,6 @@ def make_render_step(
         csum = tuple(c.reshape(chunk, n).sum(axis=0) for c in color)
         color_sum = vec.add(color_sum, csum)
         return (color_sum, segs), None
-
-    # pixel-tile swizzle (packet/payload path): each traversal packet then
-    # covers a compact tile_size x tile_size screen region instead of one
-    # full-width image row — measured 5.6x on a 100k-tri scene
-    ts = cfg.packet_tile_size if use_payload else 0
 
     def render_pixels(px, py, frame):
         """Trace cfg.spp_per_step samples for an arbitrary batch of GLOBAL
@@ -725,25 +697,11 @@ def make_render_step(
     def render_step(state: RenderState, row0=0) -> RenderState:
         h, w = state.accum.shape[0], state.accum.shape[1]
         idx = jnp.arange(h * w, dtype=jnp.int32)
-        swizzle = bool(ts) and h % ts == 0 and w % ts == 0
-        if swizzle:
-            tpw = w // ts
-            tile = idx // (ts * ts)
-            within = idx % (ts * ts)
-            px = (tile % tpw) * ts + within % ts
-            py_local = (tile // tpw) * ts + within // ts
-            # static inverse permutation to unswizzle accumulated colors
-            inv = tile_swizzle_inverse(h, w, ts)
-        else:
-            px = idx % w
-            py_local = idx // w
-            inv = None
-        py = py_local + jnp.asarray(row0, jnp.int32)
+        px = idx % w
+        py = idx // w + jnp.asarray(row0, jnp.int32)
 
         frame = state.frame
         color_sum, segs = render_pixels(px, py, frame)
-        if swizzle:
-            color_sum = tuple(c[inv] for c in color_sum)
         color = vec.to_array(
             tuple(c.reshape(h, w) for c in color_sum)
         ) / np.float32(spp)

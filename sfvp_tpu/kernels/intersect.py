@@ -1,6 +1,6 @@
-"""Ray/triangle intersection — the TPU replacement for the reference's
-hardware ``traceRayEXT`` (ref shaders/raygen.rgen:63-75) + BLAS/TLAS
-(ref main.cpp:414-538).
+"""Ray/triangle intersection — the software replacement for the
+reference's hardware ``traceRayEXT`` (ref shaders/raygen.rgen:63-75) +
+BLAS/TLAS (ref main.cpp:414-538).
 
 Semantics matched:
   - no backface culling (ref main.cpp:525 sets TriangleFacingCullDisable);
@@ -9,7 +9,7 @@ Semantics matched:
   - valid window t in (t_min, t_max)
 
 All hot-path math is SoA (see utils/vec.py): rays are component tuples of
-(N,) arrays; hit records are SoA fields (the TPU analog of the HitPayload
+(N,) arrays; hit records are SoA fields (the analog of the HitPayload
 ABI, ref shaders/common.glsl:2-9).
 """
 
@@ -32,6 +32,27 @@ class Hit(NamedTuple):
     prim: jnp.ndarray   # (N,) i32, -1 on miss
     u: jnp.ndarray      # (N,) f32 barycentric
     v: jnp.ndarray      # (N,) f32 barycentric
+
+
+class Payload(NamedTuple):
+    """Closest-hit record plus shade data, SoA over rays (miss: t == +inf).
+    What a trace that resolves materials itself hands the integrator's
+    ``trace_payload_fn`` hook in place of a ``Hit``."""
+
+    t: jnp.ndarray
+    u: jnp.ndarray
+    v: jnp.ndarray
+    p0: tuple
+    p1: tuple
+    p2: tuple
+    albedo: tuple       # Kd for diffuse, Ks for mirror/glossy/dielectric
+    emission: tuple
+    mtype: jnp.ndarray  # f32: material type + roughness (or encoded IOR)
+    # map_Kd extension (None on untextured scenes): interpolated vt at the
+    # hit + texture id; the shade phase does the bilinear fetch
+    texu: "jnp.ndarray | None" = None
+    texv: "jnp.ndarray | None" = None
+    texid: "jnp.ndarray | None" = None  # i32, -1 = untextured
 
 
 def _as_v3(a):
@@ -75,8 +96,8 @@ def moller_trumbore(o, d, v0, v1, v2, t_min, t_max):
 def trace_brute_jnp(o, d, scene, t_min, t_max, active=None) -> Hit:
     """Closest-hit over ALL triangles via a scan over the scene's SoA
     columns (peak memory O(N_rays), not O(N_rays * N_tris)). Ideal for
-    small scenes — e.g. the 36-triangle Cornell Box — and the CPU oracle
-    the fused Pallas kernels are tested against.
+    small scenes — e.g. the 36-triangle Cornell Box — and the oracle the
+    fused Cornell kernel (kernels/megakernel.py) is tested against.
 
     o, d: component tuples of (N,) arrays (or (N, 3) arrays).
     """

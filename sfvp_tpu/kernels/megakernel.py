@@ -1,455 +1,298 @@
-"""Fused Pallas path-tracing megakernel (brute-force trace), chunked
-variant: one wave of spp_chunk samples per kernel launch with masked lanes.
-The default production path is kernels/megakernel_regen.py (in-lane sample
-regeneration, ~15% faster); this variant is bitwise-identical to the jnp
-integrator and serves as the parity oracle (megakernel_regen=False).
+"""Fused Cornell path-tracing kernel for NVIDIA Hopper (Pallas, Triton route).
 
-One kernel invocation traces a full wave: primary-ray generation (camera +
-PCG jitter), the max_depth bounce loop with Moller-Trumbore intersection
-against ALL triangles (scene resident in VMEM, scalar-broadcast per
-triangle — no gathers), closest-hit material/vertex selection, hemisphere
-sampling, and throughput/color accumulation. Per-wave HBM traffic is just
-the color/segment output planes: everything else lives in registers/VMEM.
+One kernel launch renders a whole progressive step. A program owns
+``BLOCK`` consecutive pixels, one pixel per lane. Each lane runs every
+sample of the step back to back: primary ray (camera + PCG jitter), the
+bounce loop with masked lanes (up to ``max_depth``, left as soon as no
+path of the block is alive), a brute-force closest-hit
+loop over all triangles, diffuse/mirror shading, uniform or cosine
+hemisphere sampling and optional Russian roulette. Path state stays in
+registers. Each bounce reads the triangle table from global memory
+(20 x Tp f32, a few KB that stay in L1), and the step ends with one
+read-modify-write of the running-mean accumulator per pixel.
 
-This fuses what the reference splits across the RT pipeline stages
-(raygen/closesthit/miss shaders + hardware traversal,
-ref shaders/raygen.rgen:41-91, closesthit.rchit:50-65, miss.rmiss:8-12)
-into one compiled program per ray block, with semantics identical to the
-jnp wavefront integrator (tested equivalent).
+The estimator, the sample streams and the op order are those of the jnp
+wavefront integrator (integrate/wavefront.py), which is this kernel's
+reference: the camera, sampling, RNG and Moller-Trumbore helpers are the
+same functions. The reference's fused path is the same loop
+(ref shaders/raygen.rgen:41-91, closesthit.rchit:50-65, miss.rmiss:8-12).
 
-Suited to small scenes (triangles unrolled; <= ~256 tris). Large scenes use
-the BVH packet-traversal kernel instead.
+Capability set: diffuse and mirror materials, uniform or cosine sampling,
+Russian roulette, ``row0`` row offsets for sharding. ``unsupported``
+names what falls outside it; dispatch routes such configs to jnp.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from .. import rng
+from ..camera import generate_rays_soa
 from ..config import RenderConfig
+from ..sampling import sample_direction_cosine_soa, sample_direction_uniform_soa
 from ..utils import vec
+from .intersect import moller_trumbore_soa
 
 TWO_PI = np.float32(2.0 * np.pi)
 INV_PI = np.float32(1.0 / np.pi)
-_RAND_SCALE = np.float32(2.0**-32)
-_U = jnp.uint32
 
+# Pixels per program and warps per program: the fastest of the sweep on
+# the H100 at the reference workload (1024^2, 32 spp, depth 8; PERF.md).
+# Small blocks leave the bounce loop sooner (the loop runs until the
+# block's longest path ends).
+BLOCK = 128
+NUM_WARPS = 2
 
-def _pcg_vec(state):
-    """Vector PCG step (uint32), same recipe as rng.pcg (shaders/common.glsl:13-19)."""
-    prev = state * _U(747796405) + _U(2891336453)
-    shift = (prev >> _U(28)) + _U(4)
-    word = ((prev >> shift) ^ prev) * _U(277803737)
-    return (word >> _U(22)) ^ word, prev
-
-
-def _u32_to_f32(u):
-    """Bit-exact float(u) for uint32 u without a direct u32->f32 cast
-    (unsupported by Mosaic): hi24 = u >> 8 and lo8 = u & 0xff are both
-    exactly representable in f32, and the final add performs the single
-    round-to-nearest that float(u) would."""
-    hi = (u >> _U(8)).astype(jnp.int32).astype(jnp.float32)
-    lo = (u & _U(0xFF)).astype(jnp.int32).astype(jnp.float32)
-    return hi * np.float32(256.0) + lo
-
-
-def _rand_vec(seed):
-    val, seed = _pcg_vec(seed)
-    return _u32_to_f32(val) * _RAND_SCALE, seed
-
-
-def _pcg2d_vec(vx, vy):
-    k = _U(1664525)
-    c = _U(1013904223)
-    vx = vx * k + c
-    vy = vy * k + c
-    vx = vx + vy * k
-    vy = vy + vx * k
-    vx = vx ^ (vx >> _U(16))
-    vy = vy ^ (vy >> _U(16))
-    vx = vx + vy * k
-    vy = vy + vx * k
-    vx = vx ^ (vx >> _U(16))
-    vy = vy ^ (vy >> _U(16))
-    return vx, vy
+# scene_table rows
+_V0, _V1, _V2, _KD, _KE, _KS, _MTYPE = 0, 3, 6, 9, 12, 15, 18
 
 
 def scene_table(scene_buffers) -> jnp.ndarray:
     """(20, Tp) f32 triangle table: rows 0-8 vertex coords, 9-11 Kd,
-    12-14 Ke, 15-17 Ks, 18 material type (as f32), 19 roughness (GGX for
-    mtype 2, encoded IOR (Ni-1)/4 for mtype 3). Textured scenes append
-    rows 20-26: u0 v0 u1 v1 u2 v2 texid+1 (0 = untextured). Read back as
-    scalars inside the kernel."""
-    cols = [
-        scene_buffers.v0x, scene_buffers.v0y, scene_buffers.v0z,
-        scene_buffers.v1x, scene_buffers.v1y, scene_buffers.v1z,
-        scene_buffers.v2x, scene_buffers.v2y, scene_buffers.v2z,
-        scene_buffers.dr, scene_buffers.dg, scene_buffers.db,
-        scene_buffers.er, scene_buffers.eg, scene_buffers.eb,
-        scene_buffers.sr, scene_buffers.sg, scene_buffers.sb,
-        scene_buffers.mtype.astype(jnp.float32),
-        scene_buffers.rough,
-    ]
+    12-14 Ke, 15-17 Ks, 18 material type (as f32), 19 roughness."""
+    b = scene_buffers
+    return jnp.stack([
+        b.v0x, b.v0y, b.v0z, b.v1x, b.v1y, b.v1z, b.v2x, b.v2y, b.v2z,
+        b.dr, b.dg, b.db, b.er, b.eg, b.eb, b.sr, b.sg, b.sb,
+        b.mtype.astype(jnp.float32), b.rough,
+    ], axis=0)
+
+
+def unsupported(cfg: RenderConfig, scene_buffers) -> List[str]:
+    """Features of (cfg, scene) outside this kernel's capability set;
+    empty when the kernel can render the config."""
+    t = scene_buffers.num_tris
+    mtype = np.asarray(scene_buffers.mtype)[:t]
+    out = []
+    if cfg.use_nee:
+        out.append("next-event estimation")
+    if cfg.camera.lens_radius > 0.0:
+        out.append("thin-lens depth of field")
+    if np.any(mtype == 2):
+        out.append("GGX glossy material")
+    if np.any(mtype == 3):
+        out.append("dielectric material")
     if scene_buffers.has_textures:
-        cols += [
-            scene_buffers.u0, scene_buffers.v0t,
-            scene_buffers.u1, scene_buffers.v1t,
-            scene_buffers.u2, scene_buffers.v2t,
-            scene_buffers.tex.astype(jnp.float32) + 1.0,
-        ]
-    return jnp.stack(cols, axis=0)
+        out.append("textures")
+    if getattr(scene_buffers, "env", None) is not None:
+        out.append("environment map")
+    return out
 
 
-def make_wave_kernel(
+def make_render_step_gpu(
     cfg: RenderConfig,
-    num_tris: int,
-    global_shape: tuple,
-    local_npix: int,
-    block_rows: int = 64,
-    interpret: Optional[bool] = None,
-    has_mirrors: bool = False,
+    scene_buffers,
+    global_shape: Optional[tuple] = None,
+    interpret: bool = False,
 ):
-    """Build wave_fn(frame, chunk_idx, row0, tri_table) ->
-    (color_r, color_g, color_b, segs), each color (chunk*local_npix,) f32.
+    """Progressive render step ``render_step(state, row0=0) -> state``
+    driven by the fused kernel; same signature and estimator as
+    ``integrate.make_render_step``.
 
-    has_mirrors (static): compiles in the mirror-BRDF path only when the
-    scene actually contains mirror materials — zero cost in parity mode.
-    """
-    gh, gw = global_shape
-    chunk = cfg.spp_chunk
+    Compiles for the GPU only. ``interpret=True`` runs the kernel in
+    the Pallas interpreter (tests on the CPU)."""
+    cfg.spp_chunks()  # rejects a bad spp_chunk, as the jnp integrator does
+    problems = unsupported(cfg, scene_buffers)
+    if problems:
+        raise ValueError(
+            "the fused Cornell kernel does not support: " + ", ".join(problems)
+        )
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            f"the fused Cornell kernel compiles for the GPU only (backend "
+            f"is {jax.default_backend()!r}); pass interpret=True to run it "
+            f"in the Pallas interpreter"
+        )
+    gh, gw = global_shape if global_shape is not None else (cfg.height, cfg.width)
     spp = cfg.spp_per_step
     max_depth = cfg.max_depth
     t_min = np.float32(cfg.t_min)
     t_max = np.float32(cfg.t_max)
     sky = tuple(np.float32(s) for s in cfg.sky_emission)
-    cam = cfg.camera
     uniform = cfg.sampling == "uniform"
     use_rr = cfg.use_rr
     rr_start = cfg.rr_start_depth
 
-    n_rays = chunk * local_npix
-    lanes = 128
-    rows_total = -(-n_rays // lanes)  # ceil
-    r = max(8, min(block_rows, rows_total))
-    # pad rows to a multiple of the block
-    rows_padded = -(-rows_total // r) * r
-    grid = rows_padded // r
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    inv2w = np.float32(2.0 / gw)
-    inv2h = np.float32(2.0 / gh)
-    cx, cy, cz = (np.float32(v) for v in cam.center)
-    rx, ry, rz = (np.float32(v) for v in cam.right)
-    ux, uy, uz = (np.float32(v) for v in cam.up)
-    ox0, oy0, oz0 = (np.float32(v) for v in cam.origin)
-
-    def kernel(scal_ref, tri_ref, colr_ref, colg_ref, colb_ref, segs_ref):
-        pid = pl.program_id(0)
-        frame = scal_ref[0]
-        chunk_idx = scal_ref[1]
-        row0 = scal_ref[2]
-
-        # ---- triangle scalars (hoisted out of the depth loop) ----
-        tris = []
-        for i in range(num_tris):
-            t0x = tri_ref[0, i]
-            t0y = tri_ref[1, i]
-            t0z = tri_ref[2, i]
-            t1x = tri_ref[3, i]
-            t1y = tri_ref[4, i]
-            t1z = tri_ref[5, i]
-            t2x = tri_ref[6, i]
-            t2y = tri_ref[7, i]
-            t2z = tri_ref[8, i]
-            e1 = (t1x - t0x, t1y - t0y, t1z - t0z)
-            e2 = (t2x - t0x, t2y - t0y, t2z - t0z)
-            n_mat = 10 if has_mirrors else 6
-            mat = tuple(tri_ref[9 + k, i] for k in range(n_mat))
-            tris.append(((t0x, t0y, t0z), (t1x, t1y, t1z), (t2x, t2y, t2z),
-                         e1, e2, mat))
-
-        # ---- ray indices -> pixel / sample ids ----
-        row_ids = jax.lax.broadcasted_iota(jnp.int32, (r, lanes), 0)
-        lane_ids = jax.lax.broadcasted_iota(jnp.int32, (r, lanes), 1)
-        idx = (pid * r + row_ids) * lanes + lane_ids          # wave ray id
-        p = idx % local_npix                                   # local pixel
-        s = idx // local_npix                                  # in-wave sample
-        px = p % gw
-        py = p // gw + row0
-        sample_id = chunk_idx * chunk + s
-
-        # ---- seed (ref raygen.rgen:47-48) ----
-        m = sample_id.astype(_U) + _U(spp) * frame.astype(_U) + _U(1)
-        sx, sy = _pcg2d_vec(px.astype(_U) * m, py.astype(_U) * m)
-        seed = sx + sy
-
-        # ---- camera ray (ref raygen.rgen:50-57) ----
-        r1, seed = _rand_vec(seed)
-        r2, seed = _rand_vec(seed)
-        dx = (px.astype(jnp.float32) + r1) * inv2w - 1.0
-        dy = (py.astype(jnp.float32) + r2) * inv2h - 1.0
-        d = (
-            cx + dx * rx + dy * ux - ox0,
-            cy + dx * ry + dy * uy - oy0,
-            cz + dx * rz + dy * uz - oz0,
-        )
-        d = vec.normalize(d)
-        o = (
-            jnp.full((r, lanes), ox0),
-            jnp.full((r, lanes), oy0),
-            jnp.full((r, lanes), oz0),
-        )
-
-        one = jnp.ones((r, lanes), jnp.float32)
-        zero = jnp.zeros((r, lanes), jnp.float32)
-        weight = (one, one, one)
-        color = (zero, zero, zero)
-        done = jnp.zeros((r, lanes), bool)
-        segs = zero  # per-lane traced-segment count
-
-        inf = jnp.float32(np.inf)
-
-        for depth in range(max_depth):
-            active = jnp.logical_not(done)
-
-            # ---- intersect all triangles (ref traceRayEXT replacement) ----
-            bt = jnp.full((r, lanes), inf)
-            bu = zero
-            bv = zero
-            b0 = (zero, zero, zero)
-            b1 = (zero, zero, zero)
-            b2 = (zero, zero, zero)
-            bmat = (zero,) * (10 if has_mirrors else 6)
-            for (p0, p1, p2, e1, e2, mat) in tris:
-                pvx = d[1] * e2[2] - d[2] * e2[1]
-                pvy = d[2] * e2[0] - d[0] * e2[2]
-                pvz = d[0] * e2[1] - d[1] * e2[0]
-                det = e1[0] * pvx + e1[1] * pvy + e1[2] * pvz
-                inv_det = jnp.where(jnp.abs(det) > 1e-12, 1.0 / det, 0.0)
-                tvx = o[0] - p0[0]
-                tvy = o[1] - p0[1]
-                tvz = o[2] - p0[2]
-                u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-                qvx = tvy * e1[2] - tvz * e1[1]
-                qvy = tvz * e1[0] - tvx * e1[2]
-                qvz = tvx * e1[1] - tvy * e1[0]
-                v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) * inv_det
-                t = (e2[0] * qvx + e2[1] * qvy + e2[2] * qvz) * inv_det
-                ok = (
-                    (jnp.abs(det) > 1e-12)
-                    & (u >= 0.0)
-                    & (v >= 0.0)
-                    & (u + v <= 1.0)
-                    & (t > t_min)
-                    & (t < t_max)
-                    & (t < bt)
-                )
-                bt = jnp.where(ok, t, bt)
-                bu = jnp.where(ok, u, bu)
-                bv = jnp.where(ok, v, bv)
-                b0 = vec.where(ok, (p0[0] + zero, p0[1] + zero, p0[2] + zero), b0)
-                b1 = vec.where(ok, (p1[0] + zero, p1[1] + zero, p1[2] + zero), b1)
-                b2 = vec.where(ok, (p2[0] + zero, p2[1] + zero, p2[2] + zero), b2)
-                bmat = tuple(
-                    jnp.where(ok, mv + zero, bmv) for mv, bmv in zip(mat, bmat)
-                )
-
-            miss = jnp.isinf(bt)
-            # ---- shade (ref closesthit.rchit:50-65 / miss.rmiss:8-12) ----
-            bw = 1.0 - bu - bv
-            position = (
-                b0[0] * bw + b1[0] * bu + b2[0] * bv,
-                b0[1] * bw + b1[1] * bu + b2[1] * bv,
-                b0[2] * bw + b1[2] * bu + b2[2] * bv,
-            )
-            e01 = vec.sub(b1, b0)
-            e02 = vec.sub(b2, b0)
-            nrm = vec.cross(e01, e02)
-            # degenerate-guard: rsqrt(0) on miss lanes is discarded anyway
-            inv_len = jax.lax.rsqrt(jnp.maximum(vec.dot(nrm, nrm), 1e-30))
-            normal = vec.scale(nrm, -inv_len)
-            diffuse = (bmat[0], bmat[1], bmat[2])
-            emission = vec.where(
-                miss,
-                (sky[0] + zero, sky[1] + zero, sky[2] + zero),
-                (bmat[3], bmat[4], bmat[5]),
-            )
-
-            color = vec.where(
-                active, vec.add(color, vec.mul(weight, emission)), color
-            )
-
-            # ---- sample next direction (ref raygen.rgen:14-39, 78-80) ----
-            r1, seed = _rand_vec(seed)
-            r2, seed = _rand_vec(seed)
-            nx, ny, nz = normal
-            use_x = jnp.abs(nx) > jnp.abs(ny)
-            inv_a = jax.lax.rsqrt(jnp.maximum(nx * nx + nz * nz, 1e-30))
-            inv_b = jax.lax.rsqrt(jnp.maximum(ny * ny + nz * nz, 1e-30))
-            tang = (
-                jnp.where(use_x, nz * inv_a, 0.0),
-                jnp.where(use_x, 0.0, -nz * inv_b),
-                jnp.where(use_x, -nx * inv_a, ny * inv_b),
-            )
-            bit = vec.cross(normal, tang)
-            if uniform:
-                sq = jnp.sqrt(jnp.maximum(0.0, 1.0 - r1 * r1))
-                lz = r1
-            else:
-                sq = jnp.sqrt(jnp.maximum(0.0, r1))
-                lz = jnp.sqrt(jnp.maximum(0.0, 1.0 - r1))
-            phi = TWO_PI * r2
-            lx = jnp.cos(phi) * sq
-            ly = jnp.sin(phi) * sq
-            new_dir = vec.add(
-                vec.add(vec.scale(tang, lx), vec.scale(bit, ly)),
-                vec.scale(normal, lz),
-            )
-            if uniform:
-                cos_t = vec.dot(new_dir, normal)
-                scale3 = vec.scale(diffuse, (INV_PI * TWO_PI) * cos_t)
-            else:
-                scale3 = diffuse
-
-            if has_mirrors:
-                # perfect mirror (extension): reflect about the normal
-                # flipped toward the incoming ray (double-sided geometry)
-                is_mirror = (
-                    (bmat[9] > 0.5) & (bmat[9] < 1.5) & jnp.logical_not(miss)
-                )
-                n_dot_d = vec.dot(d, normal)
-                n_f = vec.where(n_dot_d > 0, vec.scale(normal, -1.0), normal)
-                refl = vec.sub(d, vec.scale(n_f, 2.0 * vec.dot(d, n_f)))
-                new_dir = vec.where(is_mirror, refl, new_dir)
-                scale3 = vec.where(
-                    is_mirror, (bmat[6], bmat[7], bmat[8]), scale3
-                )
-
-            cont = active & jnp.logical_not(miss)
-            if use_rr and depth >= rr_start:
-                pmax = jnp.clip(
-                    vec.maxc(vec.mul(weight, scale3)), 0.05, 0.95
-                )
-                r_rr, seed = _rand_vec(seed)
-                survive = r_rr < pmax
-                scale3 = vec.scale(scale3, 1.0 / pmax)
-                cont = cont & survive
-
-            o = vec.where(cont, position, o)
-            d = vec.where(cont, new_dir, d)
-            weight = vec.where(cont, vec.mul(weight, scale3), weight)
-            done = jnp.logical_not(cont)
-            segs = segs + jnp.where(active & (idx < n_rays), 1.0, 0.0)
-
-        colr_ref[:] = color[0]
-        colg_ref[:] = color[1]
-        colb_ref[:] = color[2]
-        segs_ref[:] = segs
-
-    out_rows = rows_padded
-
-    def wave_fn(frame, chunk_idx, row0, tri_table):
-        scal = jnp.stack(
-            [
-                jnp.asarray(frame, jnp.int32),
-                jnp.asarray(chunk_idx, jnp.int32),
-                jnp.asarray(row0, jnp.int32),
-            ]
-        )
-        colr, colg, colb, segs = pl.pallas_call(
-            kernel,
-            grid=(grid,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((r, lanes), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((r, lanes), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((r, lanes), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((r, lanes), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((out_rows, lanes), jnp.float32),
-                jax.ShapeDtypeStruct((out_rows, lanes), jnp.float32),
-                jax.ShapeDtypeStruct((out_rows, lanes), jnp.float32),
-                jax.ShapeDtypeStruct((out_rows, lanes), jnp.float32),
-            ],
-            interpret=interpret,
-        )(scal, tri_table)
-        flat = lambda a: a.reshape(-1)[:n_rays]  # noqa: E731
-        return flat(colr), flat(colg), flat(colb), jnp.sum(segs)
-
-    return wave_fn
-
-
-def make_render_step_pallas(
-    cfg: RenderConfig,
-    scene_buffers,
-    global_shape: Optional[tuple] = None,
-    block_rows: int = 64,
-    interpret: Optional[bool] = None,
-):
-    """Progressive render step driven by the megakernel; same signature and
-    semantics as integrate.make_render_step (tested equivalent)."""
-    gh, gw = global_shape if global_shape is not None else (cfg.height, cfg.width)
-    spp = cfg.spp_per_step
-    chunk = cfg.spp_chunk
-    n_chunks = cfg.spp_chunks()
-    import numpy as _np
-
     table = scene_table(scene_buffers)
+    tp = int(table.shape[1])
+    table = table.reshape(-1)
     num_tris = scene_buffers.num_tris
     has_mirrors = bool(
-        _np.any(_np.asarray(scene_buffers.mtype)[:num_tris] > 0)
+        np.any(np.asarray(scene_buffers.mtype)[:num_tris] == 1)
     )
+
+    def make_kernel(npix, w):
+        def kernel(scal_ref, tab_ref, acc_in_ref, acc_ref, segs_ref):
+            pid = pl.program_id(0)
+            frame = scal_ref[0]
+            row0 = scal_ref[1]
+            lane = pid * BLOCK + jnp.arange(BLOCK, dtype=jnp.int32)
+            valid = lane < npix
+            px = lane % w
+            py = lane // w + row0
+
+            def col(row, prim):
+                return tab_ref[row * tp + prim]
+
+            def trace(o, d, active):
+                def tri_body(i, best):
+                    bt, bp, bu, bv = best
+                    p0 = tuple(tab_ref[(_V0 + k) * tp + i] for k in range(3))
+                    p1 = tuple(tab_ref[(_V1 + k) * tp + i] for k in range(3))
+                    p2 = tuple(tab_ref[(_V2 + k) * tp + i] for k in range(3))
+                    ok, t, u, v = moller_trumbore_soa(
+                        o, d, p0, p1, p2, t_min, t_max)
+                    closer = ok & (t < bt)
+                    return (jnp.where(closer, t, bt),
+                            jnp.where(closer, i, bp),
+                            jnp.where(closer, u, bu),
+                            jnp.where(closer, v, bv))
+
+                zero = jnp.zeros((BLOCK,), jnp.float32)
+                init = (jnp.full((BLOCK,), np.inf, jnp.float32),
+                        jnp.full((BLOCK,), -1, jnp.int32), zero, zero)
+                bt, bp, bu, bv = jax.lax.fori_loop(0, num_tris, tri_body, init)
+                return jnp.where(active, bp, -1), bu, bv
+
+            def depth_body(depth, carry):
+                o, d, weight, seed, done, color, segs = carry
+                active = jnp.logical_not(done)
+                bp, bu, bv = trace(o, d, active)
+                miss = bp < 0
+                prim = jnp.maximum(bp, 0)
+                # shading inputs, as integrate.wavefront.shade_inputs
+                p0 = tuple(col(_V0 + k, prim) for k in range(3))
+                p1 = tuple(col(_V1 + k, prim) for k in range(3))
+                p2 = tuple(col(_V2 + k, prim) for k in range(3))
+                bw = 1.0 - bu - bv
+                position = vec.add(
+                    vec.add(vec.scale(p0, bw), vec.scale(p1, bu)),
+                    vec.scale(p2, bv))
+                normal = vec.scale(
+                    vec.normalize(vec.cross(vec.sub(p1, p0), vec.sub(p2, p0))),
+                    np.float32(-1.0))
+                diffuse = tuple(col(_KD + k, prim) for k in range(3))
+                emission = tuple(col(_KE + k, prim) for k in range(3))
+                emission = vec.where(miss, sky, emission)
+                emit_w = active.astype(jnp.float32)
+                color = vec.add(
+                    color, vec.scale(vec.mul(weight, emission), emit_w))
+
+                r1, seed = rng.rand(seed)
+                r2, seed = rng.rand(seed)
+                if uniform:
+                    new_dir = sample_direction_uniform_soa(r1, r2, normal)
+                    cos_t = vec.dot(new_dir, normal)
+                    scale = vec.scale(diffuse, (INV_PI * TWO_PI) * cos_t)
+                else:
+                    new_dir = sample_direction_cosine_soa(r1, r2, normal)
+                    scale = diffuse
+                if has_mirrors:
+                    is_mirror = (col(_MTYPE, prim) == 1.0) & jnp.logical_not(miss)
+                    spec = tuple(col(_KS + k, prim) for k in range(3))
+                    n_f = vec.where(vec.dot(d, normal) > 0,
+                                    vec.scale(normal, -1.0), normal)
+                    refl = vec.sub(d, vec.scale(n_f, 2.0 * vec.dot(d, n_f)))
+                    new_dir = vec.where(is_mirror, refl, new_dir)
+                    scale = vec.where(is_mirror, spec, scale)
+
+                cont = active & jnp.logical_not(miss)
+                if use_rr:
+                    p = jnp.clip(vec.maxc(vec.mul(weight, scale)), 0.05, 0.95)
+                    r_rr, seed = rng.rand(seed)
+                    rr_on = depth >= rr_start
+                    survive = jnp.logical_not(rr_on) | (r_rr < p)
+                    scale = vec.where(rr_on, vec.scale(scale, 1.0 / p), scale)
+                    cont = cont & survive
+
+                o = vec.where(cont, position, o)
+                d = vec.where(cont, new_dir, d)
+                weight = vec.where(cont, vec.mul(weight, scale), weight)
+                segs = segs + active.astype(jnp.int32)
+                return o, d, weight, seed, jnp.logical_not(cont), color, segs
+
+            def sample_body(s, carry):
+                color_sum, segs = carry
+                seed = rng.sample_seed(px, py, s, frame, spp)
+                r1, seed = rng.rand(seed)
+                r2, seed = rng.rand(seed)
+                o, d = generate_rays_soa(px, py, r1, r2, cfg.camera, gw, gh)
+                zero = jnp.zeros((BLOCK,), jnp.float32)
+                one = jnp.ones((BLOCK,), jnp.float32)
+                # lanes past the last pixel start (and stay) dead
+                init = (o, d, (one, one, one), seed,
+                        jnp.logical_not(valid), (zero, zero, zero), segs)
+                # bounce until max_depth or until no lane of the block
+                # has a live path: dead lanes add nothing, so leaving early
+                # changes no bit of the result
+                def alive(c):
+                    depth, carry = c
+                    live = jnp.max(jnp.logical_not(carry[4]).astype(jnp.int32))
+                    return (depth < max_depth) & (live > 0)
+
+                def bounce(c):
+                    depth, carry = c
+                    return depth + 1, depth_body(depth, carry)
+
+                _, (_, _, _, _, _, color, segs) = jax.lax.while_loop(
+                    alive, bounce, (jnp.int32(0), init))
+                return vec.add(color_sum, color), segs
+
+            zero = jnp.zeros((BLOCK,), jnp.float32)
+            color_sum, segs = jax.lax.fori_loop(
+                0, spp, sample_body,
+                ((zero, zero, zero), jnp.zeros((BLOCK,), jnp.int32)))
+            segs_ref[...] = segs
+
+            f = frame.astype(jnp.float32)
+            for c in range(3):
+                # masked-off lanes get out-of-range indices: the GPU never
+                # touches them, and the interpreter drops them
+                idx = lane * 3 + c
+                old = plgpu.load(acc_in_ref.at[idx], mask=valid, other=0.0)
+                new = (color_sum[c] / np.float32(spp) + old * f) / (f + 1.0)
+                plgpu.store(acc_ref.at[idx], new, mask=valid)
+
+        return kernel
 
     from ..integrate.wavefront import RenderState
 
     def render_step(state: RenderState, row0=0) -> RenderState:
         h, w = state.accum.shape[0], state.accum.shape[1]
+        if w != gw:
+            raise ValueError(f"accumulator width {w} != image width {gw}")
         npix = h * w
-        wave = make_wave_kernel(
-            cfg, num_tris, (gh, gw), npix, block_rows=block_rows,
-            interpret=interpret, has_mirrors=has_mirrors,
-        )
-        frame = state.frame
-
-        def chunk_body(carry, chunk_idx):
-            cr, cg, cb, segs = carry
-            wr, wg, wb, seg = wave(frame, chunk_idx, row0, table)
-            if chunk > 1:
-                wr = wr.reshape(chunk, npix).sum(axis=0)
-                wg = wg.reshape(chunk, npix).sum(axis=0)
-                wb = wb.reshape(chunk, npix).sum(axis=0)
-            return (cr + wr, cg + wg, cb + wb, segs + seg), None
-
-        z = jnp.zeros((npix,), jnp.float32)
-        (cr, cg, cb, segs), _ = jax.lax.scan(
-            chunk_body,
-            (z, z, z, jnp.zeros((), jnp.float32)),
-            jnp.arange(n_chunks, dtype=jnp.int32),
-        )
-        color = jnp.stack(
-            [cr.reshape(h, w), cg.reshape(h, w), cb.reshape(h, w)], axis=-1
-        ) / np.float32(spp)
-        f = frame.astype(jnp.float32)
-        accum = (color + state.accum * f) / (f + 1.0)
+        grid = pl.cdiv(npix, BLOCK)
+        scal = jnp.stack([jnp.asarray(state.frame, jnp.int32),
+                          jnp.asarray(row0, jnp.int32)])
+        acc, segs = pl.pallas_call(
+            make_kernel(npix, w),
+            grid=(grid,),
+            in_specs=[pl.no_block_spec, pl.no_block_spec, pl.no_block_spec],
+            out_specs=[pl.no_block_spec,
+                       pl.BlockSpec((BLOCK,), lambda i: (i,))],
+            out_shape=[
+                jax.ShapeDtypeStruct((npix * 3,), jnp.float32),
+                jax.ShapeDtypeStruct((grid * BLOCK,), jnp.int32),
+            ],
+            input_output_aliases={2: 0},
+            backend="triton",
+            compiler_params=plgpu.CompilerParams(
+                num_warps=NUM_WARPS, num_stages=1),
+            interpret=interpret,
+            name="cornell_megakernel",
+        )(scal, table, state.accum.reshape(-1))
         return RenderState(
-            accum=accum,
-            frame=frame + 1,
-            mrays=state.mrays + segs / np.float32(1e6),
+            accum=acc.reshape(h, w, 3),
+            frame=state.frame + 1,
+            mrays=state.mrays
+            + jnp.sum(segs).astype(jnp.float32) / np.float32(1e6),
         )
 
     return render_step

@@ -1,4 +1,4 @@
-"""Progressive render driver — the TPU analog of the reference's frame loop
+"""Progressive render driver — the analog of the reference's frame loop
 (ref main.cpp:643-685): step the jitted integrator, optionally writing PNG
 frames, JSONL metrics, and checkpoints, with async dispatch and explicit
 blocking only at observation boundaries.
@@ -39,9 +39,8 @@ class Renderer:
         r = Renderer(cfg, scene)
         r.run(steps=32, out="out.png")
 
-    ``scene`` may also be a list of ``accel.instances.Instance`` —
-    instanced scenes trace through the in-kernel two-level TLAS on
-    pallas backends (dispatch.select_instanced_render_step)."""
+    ``scene`` may also be a list of ``accel.instances.Instance``; such
+    scenes are flattened (dispatch.select_instanced_render_step)."""
 
     def __init__(
         self,

@@ -1,7 +1,7 @@
 """Dependency-free PNG export.
 
 The reference presents via a GLFW swapchain blit of a B8G8R8A8Unorm storage
-image (ref main.cpp:463, 661-682); on a headless TPU host the equivalent
+image (ref main.cpp:463, 661-682); on a headless host the equivalent
 output surface is a PNG file. ``tonemap_unorm_u8`` reproduces the
 reference's display transform exactly: clamp to [0,1] and round to 8-bit
 UNORM — NO gamma/sRGB encode (the swapchain format is Unorm, not Srgb).

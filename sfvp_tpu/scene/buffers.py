@@ -1,6 +1,6 @@
-"""Device-side scene buffers, the TPU analog of the reference's AccelInput
-Buffers (ref main.cpp:492-494) — structure-of-arrays jnp columns laid out
-for dense VPU lanes (see utils/vec.py for why SoA)."""
+"""Device-side scene buffers, the analog of the reference's AccelInput
+Buffers (ref main.cpp:492-494) — structure-of-arrays jnp columns (see
+utils/vec.py for why SoA)."""
 
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Device texture table + filtered sampling (extension — the reference has
 no textures; materials are flat Kd/Ke, ref main.cpp:47-56).
 
-TPU-native layout: all images are flattened into ONE SoA texel pool
+Layout: all images are flattened into ONE SoA texel pool
 (three (N,) channel columns) plus a per-texture (offset, width, height)
 descriptor table. Sampling a batch of hits is then a handful of XLA
 gathers over the pool — no per-texture control flow, any mix of sizes.

@@ -2,44 +2,43 @@
 
 The reference compiles its shaders offline once and commits the SPIR-V
 binaries (ref shaders/compile.bat:1-3, loaded at main.cpp:541-543), so a
-process restart never recompiles. The TPU equivalent is XLA's persistent
-compilation cache: Pallas megakernels take 100-250 s to compile through the
-remote Mosaic pipeline, and without a disk cache every process restart pays
-that again. ``enable_compilation_cache()`` is called by every entry point
-(CLI, Renderer, bench) so the cost is paid once per (kernel, config).
+process restart never recompiles. The equivalent here is XLA's persistent
+compilation cache: ``enable_compilation_cache()`` is called by every entry
+point (CLI, Renderer, bench, tests) so a compile is paid once per
+(program, config) and machine.
+
+Where the cache lives:
+  - ``$JAX_COMPILATION_CACHE_DIR`` when it is set, and nowhere else;
+  - otherwise ``<checkout>/.jax_cache`` (git-ignored). The path is part of
+    the cache key, so it is fixed rather than per user or per run.
 """
 
 from __future__ import annotations
 
 import os
 
-_DEFAULT_DIR = os.path.expanduser("~/.cache/sfvp_tpu/xla")
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
-_enabled = False
+
+def cache_dir() -> str:
+    """The directory the persistent compilation cache uses."""
+    return os.environ.get(ENV_VAR) or DEFAULT_DIR
 
 
-def enable_compilation_cache(cache_dir: str | None = None) -> str:
-    """Configure jax's persistent compilation cache (idempotent).
-
-    Directory precedence: explicit arg > $SFVP_CACHE_DIR > ~/.cache/sfvp_tpu/xla.
-    Set SFVP_CACHE_DIR=0 (or "off") to disable entirely.
-    Returns the cache directory ("" when disabled).
-    """
-    global _enabled
-    env = os.environ.get("SFVP_CACHE_DIR", "")
-    if env.lower() in ("0", "off", "none"):
-        return ""
-    path = cache_dir or env or _DEFAULT_DIR
-    if _enabled:
-        return path
-
+def enable_compilation_cache() -> str:
+    """Point jax's persistent compilation cache at ``cache_dir()``
+    (idempotent). Returns the directory."""
     import jax
 
-    os.makedirs(path, exist_ok=True)
+    path = cache_dir()
+    if path == DEFAULT_DIR:
+        os.makedirs(path, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", path)
-    # cache even fast compiles: the suite's many small jits add up, and the
-    # big Pallas kernels are the whole point
+    # cache even fast compiles: the test suite's many small jits add up
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    _enabled = True
     return path

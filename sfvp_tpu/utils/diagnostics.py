@@ -1,13 +1,13 @@
-"""Device capability checks — the TPU analog of the reference's instance /
+"""Device capability checks — the analog of the reference's instance /
 device-extension negotiation and support report (ref main.cpp:150, 193-212):
-instead of enumerating VK_KHR_* extensions, report chip kind, device count,
-HBM budget, and fail early with a readable message when requirements are
-unmet.
+instead of enumerating VK_KHR_* extensions, report device kind, device
+count and memory budget, and fail early with a readable message when
+requirements are unmet.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import jax
 
@@ -20,34 +20,33 @@ def device_report() -> List[dict]:
             "platform": d.platform,
             "device_kind": getattr(d, "device_kind", "?"),
         }
-        try:
-            stats = d.memory_stats() or {}
-            lim = stats.get("bytes_limit")
-            use = stats.get("bytes_in_use")
-            if lim is not None:
-                info["hbm_limit_gb"] = round(lim / 2**30, 2)
-            if use is not None:
-                info["hbm_in_use_gb"] = round(use / 2**30, 3)
-        except Exception:
-            pass
+        stats = d.memory_stats() or {}
+        lim = stats.get("bytes_limit")
+        use = stats.get("bytes_in_use")
+        if lim is not None:
+            info["mem_limit_gb"] = round(lim / 2**30, 2)
+        if use is not None:
+            info["mem_in_use_gb"] = round(use / 2**30, 3)
         out.append(info)
     return out
 
 
 def check_capabilities(
-    min_devices: int = 1, require_tpu: bool = False
+    min_devices: int = 1, platform: Optional[str] = None
 ) -> List[dict]:
     """Raises RuntimeError with a readable report when requirements are
     unmet (the analog of the reference's 'unsupported extensions' throw,
-    ref main.cpp:203-211)."""
+    ref main.cpp:203-211). ``platform`` (e.g. "gpu") requires jax's
+    default backend to be that platform: a measurement that needs the
+    card must not fall back to the CPU."""
     report = device_report()
     problems = []
     if len(report) < min_devices:
         problems.append(f"need >= {min_devices} devices, have {len(report)}")
-    if require_tpu and not any(r["platform"] == "tpu" for r in report):
+    if platform is not None and jax.default_backend() != platform:
         problems.append(
-            "TPU required but no TPU device present "
-            f"(platforms: {sorted({r['platform'] for r in report})})"
+            f"platform {platform!r} required but jax's backend is "
+            f"{jax.default_backend()!r}"
         )
     if problems:
         raise RuntimeError(

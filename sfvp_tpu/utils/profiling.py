@@ -1,9 +1,9 @@
 """Tracing / profiling hooks (SURVEY.md §5).
 
-The reference has no timestamps or query pools; here every render phase is
-wrapped in ``jax.named_scope`` (visible in XLA/TPU profiler traces) and a
-``profile_trace`` context manager captures a full jax.profiler trace for
-tensorboard / xprof.
+The reference has no timestamps or query pools. Here ``profile_trace``
+captures a jax.profiler trace (device and host timelines) for
+tensorboard / xprof, and ``named_scope`` is re-exported for labelling
+phases in such traces; no render phase is wrapped in one yet.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """SoA vec3 math: a vector field is a tuple of three same-shaped arrays.
 
-On TPU, an (N, 3) array wastes 125/128 lanes of every VPU op (the minor dim
-is padded to 128), so all hot-path geometry is structure-of-arrays: x, y, z
-as separate (N,) arrays that XLA tiles densely. These helpers work on any
-broadcastable component shapes and inside both jnp and Pallas kernels.
+All hot-path geometry is structure-of-arrays: x, y, z as separate (N,)
+arrays, so every elementwise op reads and writes contiguous memory (an
+(N, 3) array interleaves components and strides every access). These
+helpers work on any broadcastable component shapes and inside both jnp
+and Pallas kernels.
 """
 
 from __future__ import annotations

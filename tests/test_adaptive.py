@@ -76,34 +76,26 @@ def test_adaptive_estimate_consistent(cornell_buf):
     assert abs(img_a.mean() - img_u.mean()) / img_u.mean() < 0.1
 
 
-def test_adaptive_uses_packet_path_on_pallas_bvh(cornell_buf):
+def test_adaptive_uses_dispatch_trace_on_bvh(cornell_buf):
     """The adaptive sampler shares the full-frame loop's trace selection:
-    pallas+bvh configs get the packet payload kernel (not the jnp BVH),
-    and the adaptive estimate stays consistent with the jnp trace."""
-    from sfvp_tpu.dispatch import select_wavefront_kwargs
+    a bvh config traces through the jnp BVH (dispatch.select_trace_fn),
+    and its estimate matches the brute-force trace on equal steps."""
+    from sfvp_tpu.kernels.intersect import trace_brute_jnp
 
     cfg = RenderConfig(width=32, height=32, spp_per_step=1, max_depth=2,
-                       backend="pallas", traversal="bvh")
-    kw = select_wavefront_kwargs(cfg, cornell_buf)
-    assert "trace_payload_fn" in kw and callable(kw["trace_payload_fn"])
+                       traversal="bvh")
 
-    uni, ada = make_adaptive_steps(cfg, cornell_buf, tile=16)
-    st = init_adaptive_state(32, 32)
-    st = jax.jit(uni)(st)   # warmup (payload path, interpret mode on CPU)
-    st = jax.jit(ada)(st)   # adaptive wave through the packet kernel
-    img = np.asarray(adaptive_image(st))
+    def run(trace_fn=None):
+        uni, ada = make_adaptive_steps(cfg, cornell_buf, tile=16,
+                                       trace_fn=trace_fn)
+        st = jax.jit(uni)(init_adaptive_state(32, 32))  # warmup
+        st = jax.jit(ada)(st)                            # adaptive wave
+        return np.asarray(adaptive_image(st))
+
+    img = run()
     assert np.isfinite(img).all()
-
-    # cross-check against the jnp-trace adaptive sampler on equal steps
-    cfg_j = RenderConfig(width=32, height=32, spp_per_step=1, max_depth=2,
-                         backend="jnp", traversal="bvh")
-    uni_j, ada_j = make_adaptive_steps(cfg_j, cornell_buf, tile=16)
-    st_j = init_adaptive_state(32, 32)
-    st_j = jax.jit(uni_j)(st_j)
-    st_j = jax.jit(ada_j)(st_j)
-    np.testing.assert_allclose(
-        img, np.asarray(adaptive_image(st_j)), rtol=1e-4, atol=1e-6
-    )
+    np.testing.assert_allclose(img, run(trace_brute_jnp), rtol=1e-4,
+                               atol=1e-6)
 
 
 def test_indivisible_tile_raises(cornell_buf):

@@ -266,44 +266,95 @@ def test_profiling_scopes_and_timer():
     assert "trace" in timer.summary()
 
 
-def test_compilation_cache_roundtrip(tmp_path):
+@pytest.fixture()
+def restore_cache_config():
+    """Put jax's compilation-cache settings back after a test moves them."""
+    from jax._src import compilation_cache as _cc
+
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs")
+    prev = {k: getattr(jax.config, k) for k in keys}
+    yield
+    for k, v in prev.items():
+        jax.config.update(k, v)
+    _cc.reset_cache()
+
+
+def test_compilation_cache_roundtrip(tmp_path, monkeypatch,
+                                     restore_cache_config):
     """The persistent XLA cache must round-trip a compiled function: a
     second compile of the same HLO is served from disk (SURVEY §2 #10 —
-    the TPU analog of the reference's committed .spv shader binaries)."""
+    the analog of the reference's committed .spv shader binaries). With
+    JAX_COMPILATION_CACHE_DIR set, that directory is the cache."""
     from sfvp_tpu.utils import cache as cache_mod
 
     cache_dir = str(tmp_path / "xla")
-    prev_enabled = cache_mod._enabled
-    cache_mod._enabled = False
-    try:
-        got = cache_mod.enable_compilation_cache(cache_dir)
-        assert got == cache_dir
-        # idempotent: second call keeps the configured dir
-        assert cache_mod.enable_compilation_cache("ignored") == "ignored" or True
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        # jax pins its cache object to the FIRST directory used in the
-        # process; earlier tests (Renderer/DistRenderer/Adaptive ctors)
-        # enable the default-dir cache, so force a re-init onto tmp_path
-        from jax._src import compilation_cache as _cc
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", cache_dir)
+    assert cache_mod.enable_compilation_cache() == cache_dir
+    assert jax.config.jax_compilation_cache_dir == cache_dir
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    # jax pins its cache object to the FIRST directory used in the
+    # process; earlier tests enable the default-dir cache, so force a
+    # re-init onto tmp_path
+    from jax._src import compilation_cache as _cc
 
-        _cc.reset_cache()
+    _cc.reset_cache()
 
-        def make():
-            @jax.jit
-            def f(x):
-                return (x * 3.0 + 1.0).sum()
+    def make():
+        @jax.jit
+        def f(x):
+            return (x * 3.0 + 1.0).sum()
 
-            return f
+        return f
 
-        x = jax.numpy.arange(97, dtype=jax.numpy.float32)  # unlikely-cached shape
-        make()(x).block_until_ready()
-        entries = list(os.listdir(cache_dir))
-        assert entries, "compilation cache wrote no entries"
-        # a fresh trace of an identical function must hit the cache, not
-        # add a new entry
-        make()(x).block_until_ready()
-        assert sorted(os.listdir(cache_dir)) == sorted(entries)
-    finally:
-        jax.config.update("jax_compilation_cache_dir", None)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        cache_mod._enabled = prev_enabled
+    x = jax.numpy.arange(97, dtype=jax.numpy.float32)  # unlikely-cached shape
+    make()(x).block_until_ready()
+    entries = list(os.listdir(cache_dir))
+    assert entries, "compilation cache wrote no entries"
+    # a fresh trace of an identical function must hit the cache, not
+    # add a new entry
+    make()(x).block_until_ready()
+    assert sorted(os.listdir(cache_dir)) == sorted(entries)
+
+
+def test_compilation_cache_env_dir_is_the_only_dir(tmp_path, monkeypatch,
+                                                   restore_cache_config):
+    """With JAX_COMPILATION_CACHE_DIR set, the code sets no other
+    directory: the in-checkout default is neither chosen nor created."""
+    from sfvp_tpu.utils import cache as cache_mod
+
+    default = tmp_path / "default_cache"
+    monkeypatch.setattr(cache_mod, "DEFAULT_DIR", str(default))
+    env_dir = str(tmp_path / "from_env")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+    assert cache_mod.cache_dir() == env_dir
+    assert cache_mod.enable_compilation_cache() == env_dir
+    assert jax.config.jax_compilation_cache_dir == env_dir
+    assert not default.exists()
+
+
+def test_compilation_cache_default_is_in_checkout_and_ignored(
+        monkeypatch, restore_cache_config):
+    """Without JAX_COMPILATION_CACHE_DIR the cache lives at a fixed path
+    inside the checkout, and git ignores it (anchored pattern)."""
+    from sfvp_tpu.utils import cache as cache_mod
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache_mod.cache_dir() == os.path.join(root, ".jax_cache")
+    assert cache_mod.enable_compilation_cache() == cache_mod.DEFAULT_DIR
+    assert jax.config.jax_compilation_cache_dir == cache_mod.DEFAULT_DIR
+    assert os.path.isdir(cache_mod.DEFAULT_DIR)
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert "/.jax_cache/" in f.read().split()
+
+
+def test_required_platform_check(monkeypatch):
+    """check_capabilities(platform=...) refuses a run whose jax backend is
+    not the required one (a measurement must not fall back to the CPU)."""
+    assert jax.default_backend() == "cpu"
+    check_capabilities(platform="cpu")
+    with pytest.raises(RuntimeError, match="platform 'gpu' required"):
+        check_capabilities(platform="gpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    check_capabilities(platform="gpu")

@@ -187,38 +187,34 @@ def test_glass_tint_applies_per_interface():
     np.testing.assert_allclose(img, tint, rtol=1e-4)
 
 
-def test_glass_payload_path_matches_jnp():
-    """The packet/payload path (packed mtype+encoded-IOR lane) must
-    reproduce the jnp gather path on a glass scene (interpret mode)."""
-    from sfvp_tpu.accel.wide import build_wide_from_buffers
-    from sfvp_tpu.kernels.bvh_packet import make_packet_trace
-
+def test_glass_payload_path_matches_jnp(payload_trace):
+    """The integrator's payload path (packed mtype+encoded-IOR value)
+    must reproduce the jnp gather path on a glass scene."""
     scene = _scene(_GLASS_PANE, [0, 0, 0], [0, 0, 0], [0.9, 0.95, 1.0],
                    [3, 3], rough=ENC_GLASS)
     buffers = upload(scene)
     cfg = RenderConfig(width=8, height=8, spp_per_step=4, max_depth=4)
     a = _render(cfg, buffers)
-    wide = build_wide_from_buffers(buffers)
-    trace = make_packet_trace(wide, t_min=cfg.t_min, interpret=True)
+    trace = payload_trace(buffers, t_min=cfg.t_min)
     step = jax.jit(make_render_step(cfg, buffers, trace_payload_fn=trace))
     b = np.asarray(step(init_state(8, 8)).accum)
-    # the packed lane quantizes the encoded IOR to the f32 fraction of
+    # the packed value quantizes the encoded IOR to the f32 fraction of
     # 3.x — exact for 0.125
     np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-6)
 
 
 def test_dispatch_dielectric_renders_finite():
-    """select_render_step on a dielectric scene routes to the fused
-    regen megakernel (mtype 3 runs in-kernel since round 3,
-    test_dispatch.py pins the module) and must render finite."""
+    """select_render_step on a dielectric scene routes to the jnp
+    integrator (dielectrics are outside the fused kernel's set,
+    test_dispatch.py pins the route) and must render finite."""
     from sfvp_tpu.dispatch import select_render_step
 
     scene = _scene(_GLASS_PANE, [0, 0, 0], [0, 0, 0], [1, 1, 1], [3, 3],
                    rough=ENC_GLASS)
     buffers = upload(scene)
-    cfg = RenderConfig(width=8, height=8, spp_per_step=2, max_depth=2,
-                       backend="pallas")
+    cfg = RenderConfig(width=8, height=8, spp_per_step=2, max_depth=2)
     step = select_render_step(cfg, buffers)
+    assert step.__module__ == "sfvp_tpu.integrate.wavefront"
     out = jax.jit(lambda s: step(s, 0))(init_state(8, 8))
     assert np.isfinite(np.asarray(out.accum)).all()
 

@@ -1,21 +1,31 @@
 """Backend/traversal dispatch resolution logic."""
 
+import dataclasses
+
+import jax
 import numpy as np
 import pytest
 
 from sfvp_tpu import RenderConfig, upload
+from sfvp_tpu.config import CameraConfig
 from sfvp_tpu.dispatch import _resolve, select_render_step, select_trace_fn
 from sfvp_tpu.kernels.intersect import trace_brute_jnp
 from sfvp_tpu.scene.buffers import from_arrays
+from sfvp_tpu.scene.textures import TextureTable
 
 
-def _buffers(n):
+def _buffers(n, mat_type=None):
     g = np.random.default_rng(0)
     tris = (g.uniform(-5, 5, (n, 1, 3)) + g.normal(0, 0.5, (n, 3, 3))).astype(
         np.float32
     )
     z = np.zeros((n, 3), np.float32)
-    return from_arrays(tris, z, z)
+    if mat_type is None:
+        return from_arrays(tris, z, z)
+    mt = np.zeros((n,), np.int32)
+    mt[:2] = mat_type
+    return from_arrays(tris, z, z, specular=z + 0.5, mat_type=mt,
+                       rough=np.full(n, 0.3, np.float32))
 
 
 def test_resolve_auto_small_scene(cornell_buffers):
@@ -29,9 +39,17 @@ def test_resolve_auto_big_scene():
     assert traversal == "bvh"
 
 
-def test_resolve_explicit_overrides(cornell_buffers):
-    cfg = RenderConfig(backend="pallas", traversal="bvh")
-    assert _resolve(cfg, cornell_buffers) == ("pallas", "bvh")
+def test_resolve_explicit_overrides(cornell_buffers, monkeypatch):
+    """An explicit traversal is honoured; an explicit pallas backend is
+    honoured where the kernel can run and refused where it cannot."""
+    assert _resolve(RenderConfig(backend="jnp", traversal="bvh"),
+                    cornell_buffers) == ("jnp", "bvh")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert _resolve(RenderConfig(backend="pallas"),
+                    cornell_buffers) == ("pallas", "brute")
+    with pytest.raises(ValueError, match="BVH traversal"):
+        _resolve(RenderConfig(backend="pallas", traversal="bvh"),
+                 cornell_buffers)
 
 
 def test_trace_fn_small_is_brute(cornell_buffers):
@@ -56,198 +74,150 @@ def test_render_step_builds_for_all_paths(cornell_buffers):
     )
 
 
-def test_nee_routes_to_jnp(cornell_buffers):
-    """pallas+brute+NEE builds (regen megakernel carries NEE in-kernel)."""
-    cfg = RenderConfig(backend="pallas", traversal="brute", use_nee=True,
-                       sampling="cosine")
-    assert callable(select_render_step(cfg, cornell_buffers))
-
-
-def test_mis_and_dof_stay_on_regen_megakernel(cornell_buffers):
-    """MIS and thin-lens DOF no longer knock small scenes off the fused
-    regen megakernel (VERDICT r2 items 2-3)."""
-    import dataclasses
-
-    cfg = RenderConfig(backend="pallas", traversal="brute", use_nee=True,
-                       use_mis=True, sampling="cosine")
+def test_nee_routes_to_jnp(cornell_buffers, monkeypatch):
+    """NEE is outside the fused kernel's set: auto takes jnp even on a
+    GPU, and an explicit pallas request raises."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    cfg = RenderConfig(use_nee=True, sampling="cosine")
     step = select_render_step(cfg, cornell_buffers)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_regen"
-
-    cfg = RenderConfig(
-        backend="pallas", traversal="brute",
-        camera=dataclasses.replace(
-            RenderConfig().camera, lens_radius=0.1, focus_dist=3.0
-        ),
-    )
-    step = select_render_step(cfg, cornell_buffers)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_regen"
-
-
-def test_glossy_and_dielectric_stay_on_regen_megakernel():
-    """GGX and smooth-dielectric materials run in-kernel on small scenes
-    (the brute regen kernel reads Ks/mtype/rough from the scene table)."""
-    g = np.random.default_rng(0)
-    tris = (g.uniform(-5, 5, (8, 1, 3))
-            + g.normal(0, 0.5, (8, 3, 3))).astype(np.float32)
-    z = np.zeros((8, 3), np.float32)
-    for mt in (2, 3):
-        mtypes = np.zeros(8, np.int32)
-        mtypes[:2] = mt
-        rough = np.full(8, 0.3, np.float32)
-        bufs = from_arrays(tris, z, z, specular=z + 0.5, mat_type=mtypes,
-                           rough=rough)
-        cfg = RenderConfig(backend="pallas", traversal="brute")
-        step = select_render_step(cfg, bufs)
-        assert step.__module__ == "sfvp_tpu.kernels.megakernel_regen"
-
-
-def test_nee_light_count_routing():
-    """NEE scenes route by emissive-triangle count: <=MAX_KERNEL_LIGHTS
-    stays on the fused regen megakernel (one-hot MXU CDF select past
-    LIGHT_UNROLL_MAX), beyond it dispatch falls back to the wavefront
-    searchsorted path."""
-    from sfvp_tpu.kernels.imgfetch import MAX_KERNEL_LIGHTS
-
-    g = np.random.default_rng(3)
-
-    def bufs_with_lights(n, n_lit):
-        tris = (g.uniform(-5, 5, (n, 1, 3))
-                + g.normal(0, 0.5, (n, 3, 3))).astype(np.float32)
-        z = np.zeros((n, 3), np.float32)
-        ke = np.zeros((n, 3), np.float32)
-        ke[:n_lit] = 2.0
-        return from_arrays(tris, z, ke)
-
-    cfg = RenderConfig(backend="pallas", traversal="brute", use_nee=True,
-                       sampling="cosine")
-    # past LIGHT_UNROLL_MAX but under the kernel cap: fused, MXU select
-    step = select_render_step(cfg, bufs_with_lights(64, 40))
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_regen"
-    # past the kernel cap: wavefront searchsorted
-    step = select_render_step(
-        cfg, bufs_with_lights(MAX_KERNEL_LIGHTS + 8, MAX_KERNEL_LIGHTS + 4))
     assert step.__module__ == "sfvp_tpu.integrate.wavefront"
+    with pytest.raises(ValueError, match="next-event estimation"):
+        select_render_step(dataclasses.replace(cfg, backend="pallas"),
+                           cornell_buffers)
 
 
-def test_jnp_bvh_on_tpu_refused(monkeypatch):
-    """Explicit backend=jnp + traversal=bvh on a real TPU faults the chip
-    (docs/ROADMAP.md KNOWN BACKEND ISSUE) — dispatch must refuse with a
-    clear error instead of wedging it; SFVP_ALLOW_JNP_BVH_ON_TPU=1
-    overrides."""
-    import sfvp_tpu.dispatch as dispatch
-
-    monkeypatch.setattr(dispatch, "_on_tpu", lambda: True)
-    cfg = RenderConfig(backend="jnp", traversal="bvh")
-    with pytest.raises(ValueError, match="faults the TPU"):
-        select_trace_fn(cfg, _buffers(64))
-    monkeypatch.setenv("SFVP_ALLOW_JNP_BVH_ON_TPU", "1")
-    assert callable(select_trace_fn(cfg, _buffers(64)))
+def _env_buffers(buffers):
+    n = 4 * 8
+    return buffers._replace(env=TextureTable(
+        tr=np.ones((n,), np.float32), tg=np.ones((n,), np.float32),
+        tb=np.ones((n,), np.float32), off=np.zeros((1,), np.int32),
+        width=np.full((1,), 8, np.int32), height=np.full((1,), 4, np.int32),
+    ))
 
 
-def test_nee_spp_chunk_stays_fused():
-    """NEE with folded sample waves (spp_chunk > 1) routes to the fused
-    BVH regen kernel since round 4: the round-3 wavefront preference
-    predated the SMEM node tables; re-measured (probe_chunk_nee.py) the
-    fused kernel wins 1.30x on the 100k MIS chunk=8 bench and 3.79x on
-    the city 2048^2 chunk=4 bench. The fused kernel ignores spp_chunk
-    (in-lane sample regeneration; streams are chunk-layout invariant,
-    test_spp_chunk_invariance) so the flip is image-safe."""
-    g = np.random.default_rng(5)
-    n = 256
-    tris = (g.uniform(-5, 5, (n, 1, 3))
-            + g.normal(0, 0.5, (n, 3, 3))).astype(np.float32)
-    z = np.zeros((n, 3), np.float32)
-    ke = np.zeros((n, 3), np.float32)
-    ke[:4] = 2.0
-    bufs = from_arrays(tris, z, ke)
-    cfg = RenderConfig(backend="pallas", traversal="bvh", use_nee=True,
-                       sampling="cosine", spp_per_step=8, spp_chunk=4)
-    step = select_render_step(cfg, bufs)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_bvh"
+def _textured_buffers(tmp_path):
+    from sfvp_tpu import load_obj
+    from sfvp_tpu.render.png import encode_png
+
+    scene = load_obj()
+    t = scene.num_triangles
+    p = tmp_path / "checker.png"
+    p.write_bytes(encode_png(np.full((4, 4, 3), 200, np.uint8)))
+    scene.face_uv = np.zeros((t, 3, 2), np.float32)
+    scene.face_tex = np.zeros((t,), np.int32)
+    scene.texture_paths = [str(p)]
+    return upload(scene)
 
 
-def test_fused_combined_vmem_budget_routes_wavefront():
-    """Env/atlas/light operands each fit their own cap, but stacked next
-    to a near-budget scene the fused BVH kernel must not compile over
-    VMEM: when nodes+extras exceed vmem_scene_budget dispatch takes the
-    wavefront loop (scene-only VMEM); when they fit, the fused kernel."""
-    g = np.random.default_rng(7)
-    n = 2000
-    tris = (g.uniform(-5, 5, (n, 1, 3))
-            + g.normal(0, 0.5, (n, 3, 3))).astype(np.float32)
-    z = np.zeros((n, 3), np.float32)
-    ke = np.zeros((n, 3), np.float32)
-    ke[:40] = 2.0   # 40 lights: past LIGHT_UNROLL_MAX, ~200KB operands
-    bufs = from_arrays(tris, z, ke)
+def _instanced_flat():
+    from sfvp_tpu.dispatch import select_instanced_render_step
+    from sfvp_tpu.scene.procedural import instanced_field
 
-    from sfvp_tpu.accel.wide import build_wide_from_buffers
-    nodes_bytes = build_wide_from_buffers(bufs).nodes.nbytes
+    _, flat = select_instanced_render_step(
+        RenderConfig(width=8, height=8), instanced_field(n_tris=600,
+                                                         n_inst=4))
+    return flat
 
-    kw = dict(backend="pallas", traversal="bvh", use_nee=True,
-              sampling="cosine")
-    step = select_render_step(
-        RenderConfig(vmem_scene_budget=nodes_bytes + 4 * 2**20, **kw), bufs)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_bvh"
-    step = select_render_step(
-        RenderConfig(vmem_scene_budget=nodes_bytes + 64 * 1024, **kw), bufs)
+
+_DOF = CameraConfig(lens_radius=0.1, focus_dist=3.0)
+
+# (case id, config overrides, scene builder, expected integrator module)
+_GPU_ROUTES = [
+    ("parity_cornell", {}, "cornell", "sfvp_tpu.kernels.megakernel"),
+    ("cosine_rr_cornell", dict(sampling="cosine", use_rr=True), "cornell",
+     "sfvp_tpu.kernels.megakernel"),
+    ("mirror", {}, "mirror", "sfvp_tpu.kernels.megakernel"),
+    ("nee", dict(use_nee=True), "cornell", "sfvp_tpu.integrate.wavefront"),
+    ("mis", dict(use_nee=True, use_mis=True), "cornell",
+     "sfvp_tpu.integrate.wavefront"),
+    ("dof", dict(camera=_DOF), "cornell", "sfvp_tpu.integrate.wavefront"),
+    ("ggx", {}, "ggx", "sfvp_tpu.integrate.wavefront"),
+    ("dielectric", {}, "dielectric", "sfvp_tpu.integrate.wavefront"),
+    ("env", {}, "env", "sfvp_tpu.integrate.wavefront"),
+    ("texture", {}, "texture", "sfvp_tpu.integrate.wavefront"),
+    ("bvh_size", {}, "bvh", "sfvp_tpu.integrate.wavefront"),
+    ("instanced", {}, "instanced", "sfvp_tpu.integrate.wavefront"),
+]
+
+
+def _scene(kind, cornell_buffers, tmp_path):
+    if kind == "cornell":
+        return cornell_buffers
+    if kind == "mirror":
+        return _buffers(16, mat_type=1)
+    if kind == "ggx":
+        return _buffers(16, mat_type=2)
+    if kind == "dielectric":
+        return _buffers(16, mat_type=3)
+    if kind == "env":
+        return _env_buffers(cornell_buffers)
+    if kind == "texture":
+        return _textured_buffers(tmp_path)
+    if kind == "bvh":
+        return _buffers(1000)
+    return _instanced_flat()
+
+
+@pytest.mark.parametrize("case,overrides,kind,module", _GPU_ROUTES,
+                         ids=[r[0] for r in _GPU_ROUTES])
+def test_gpu_dispatch(case, overrides, kind, module, cornell_buffers,
+                      tmp_path, monkeypatch):
+    """With the platform read as "gpu", auto takes the fused kernel exactly
+    for brute-size diffuse/mirror configs without NEE, DOF, env or
+    textures; everything else takes the jnp integrator, and an explicit
+    backend="pallas" outside that set raises."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    buffers = _scene(kind, cornell_buffers, tmp_path)
+    cfg = RenderConfig(width=8, height=8, spp_per_step=1, **overrides)
+    assert select_render_step(cfg, buffers).__module__ == module
+    pallas = dataclasses.replace(cfg, backend="pallas")
+    if module == "sfvp_tpu.kernels.megakernel":
+        assert select_render_step(pallas, buffers).__module__ == module
+    else:
+        with pytest.raises(ValueError, match="backend='pallas'"):
+            select_render_step(pallas, buffers)
+
+
+def test_auto_on_cpu_is_jnp_and_pallas_raises(cornell_buffers):
+    """Off the GPU, auto never picks the kernel and an explicit pallas
+    request raises instead of running the interpreter."""
+    step = select_render_step(RenderConfig(width=8, height=8),
+                              cornell_buffers)
     assert step.__module__ == "sfvp_tpu.integrate.wavefront"
+    with pytest.raises(ValueError, match="platform 'cpu'"):
+        select_render_step(RenderConfig(width=8, height=8, backend="pallas"),
+                           cornell_buffers)
 
 
-def test_auto_spp_chunk_picks_fold_for_wavefront_routes():
-    """Round 5: spp_chunk is an execution knob (streams are chunk-layout
-    invariant) so pallas wavefront-loop routes auto-tune it — the
-    measured 1.29x textured-scene fold no longer needs --spp-chunk."""
-    from sfvp_tpu.dispatch import _auto_chunk_cfg
+def test_unknown_backend_raises(cornell_buffers):
+    with pytest.raises(ValueError, match="unknown backend"):
+        select_render_step(RenderConfig(backend="tensorcore"),
+                           cornell_buffers)
 
-    # small frame: largest divisor of spp <= 8
-    assert _auto_chunk_cfg(
-        RenderConfig(width=256, height=256, spp_per_step=8)).spp_chunk == 8
-    # non-power-of-two spp: largest divisor <= 8 of 12 is 6
-    assert _auto_chunk_cfg(
-        RenderConfig(width=256, height=256, spp_per_step=12)).spp_chunk == 6
-    # an explicit user chunk is respected
-    cfg = RenderConfig(width=256, height=256, spp_per_step=8, spp_chunk=2)
-    assert _auto_chunk_cfg(cfg).spp_chunk == 2
-    # high-res frames cap the wave (2048^2 pixels fills the cap alone)
-    assert _auto_chunk_cfg(
-        RenderConfig(width=2048, height=2048, spp_per_step=8)).spp_chunk == 1
-    # nothing to fold at spp 1
-    assert _auto_chunk_cfg(
-        RenderConfig(width=64, height=64, spp_per_step=1)).spp_chunk == 1
+
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+def test_bad_spp_chunk_raises_on_every_route(platform, cornell_buffers,
+                                             monkeypatch):
+    """spp_per_step not divisible by spp_chunk is refused whichever
+    integrator dispatch picks (jnp on the CPU, the fused kernel on a GPU),
+    so whether a config is accepted does not depend on the platform."""
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    cfg = RenderConfig(width=8, height=8, spp_per_step=5, spp_chunk=2)
+    assert _resolve(cfg, cornell_buffers)[0] == (
+        "pallas" if platform == "gpu" else "jnp")
+    with pytest.raises(ValueError, match="divisible by spp_chunk"):
+        select_render_step(cfg, cornell_buffers)
 
 
 def test_spp_chunk_is_not_image_affecting_in_hash():
-    """config_hash no longer depends on spp_chunk (round 5); default-chunk
-    hashes are bit-stable vs v1 (test_mis pins the literal)."""
-    import dataclasses
-
+    """config_hash does not depend on spp_chunk; default-chunk hashes are
+    bit-stable vs v1 (test_mis pins the literal)."""
     base = RenderConfig()
     chunked = dataclasses.replace(base, spp_chunk=8)
     assert base.config_hash() == chunked.config_hash()
 
 
-def test_wavefront_route_applies_auto_chunk(monkeypatch):
-    """The pallas->wavefront fallback routes pass through _auto_chunk_cfg
-    (here: many-lights NEE knocks a brute config off the fused kernel)."""
-    import sfvp_tpu.dispatch as dispatch
-    import sfvp_tpu.kernels.imgfetch as imgfetch
-
-    calls = []
-    real = dispatch._auto_chunk_cfg
-    monkeypatch.setattr(
-        dispatch, "_auto_chunk_cfg",
-        lambda cfg: (calls.append(cfg.spp_chunk), real(cfg))[1])
-    monkeypatch.setattr(imgfetch, "MAX_KERNEL_LIGHTS", 2)
-    g = np.random.default_rng(3)
-    n = 64
-    tris = (g.uniform(-5, 5, (n, 1, 3))
-            + g.normal(0, 0.5, (n, 3, 3))).astype(np.float32)
-    z = np.zeros((n, 3), np.float32)
-    ke = np.zeros((n, 3), np.float32)
-    ke[:4] = 2.0
-    bufs = from_arrays(tris, z, ke)
-    cfg = RenderConfig(backend="pallas", traversal="brute", use_nee=True,
-                       width=16, height=16, spp_per_step=8)
-    step = select_render_step(cfg, bufs)
-    assert callable(step)
-    assert calls == [1]
+def test_dispatch_debug_names_the_route(cornell_buffers, capfd, monkeypatch):
+    monkeypatch.setenv("SFVP_DISPATCH_DEBUG", "1")
+    select_render_step(RenderConfig(width=8, height=8), cornell_buffers)
+    assert "wavefront(jnp) traversal=brute" in capfd.readouterr().err

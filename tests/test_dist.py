@@ -41,9 +41,8 @@ def test_sharded_equals_single(cfg, cornell_buffers):
 
 
 def test_sharded_instanced_equals_single():
-    """Instanced scenes row-shard like any other: DistRenderer routes a
-    list of Instances through instanced_wavefront_kwargs (TLAS payload
-    trace on pallas backends) and matches the single-chip Renderer
+    """Instanced scenes row-shard like any other: DistRenderer flattens a
+    list of Instances as the single-device Renderer does and matches it
     pixel-identically."""
     from sfvp_tpu.config import CameraConfig
     from sfvp_tpu.dist import DistRenderer
@@ -55,8 +54,7 @@ def test_sharded_instanced_equals_single():
                                fov_y_deg=50)
     icfg = RenderConfig(width=16, height=16, spp_per_step=1, max_depth=2,
                         camera=cam, sampling="cosine",
-                        sky_emission=(0.8, 0.85, 1.0), backend="pallas",
-                        packet_tile_size=8)
+                        sky_emission=(0.8, 0.85, 1.0))
     d = DistRenderer(icfg, insts)
     d.step(2)
     r = Renderer(icfg, insts, donate=False)
@@ -144,30 +142,25 @@ def test_dist_renderer_full_run(tmp_path):
         load_checkpoint_sharded(ck, r.mesh, bad.config_hash())
 
 
-def test_sharded_payload_path_matches_single():
-    """Sharded rendering THROUGH THE PACKET/PAYLOAD kernel (interpret mode)
-    must match the single-device payload render pixel-exactly — the sharded
-    code no longer rests only on the jnp-brute equivalence test."""
+def test_sharded_payload_path_matches_single(payload_trace):
+    """Sharded rendering through the integrator's payload hook (per-bounce
+    ray sort, shading from a Payload) must match the single-device
+    payload render pixel-exactly."""
     import jax
 
-    from sfvp_tpu.accel.wide import build_wide_from_buffers
     from sfvp_tpu.dist.mesh import default_mesh, make_sharded_render_step
     from sfvp_tpu.integrate.wavefront import make_render_step
-    from sfvp_tpu.kernels.bvh_packet import make_packet_trace
 
-    cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=2,
-                       packet_tile_size=8)
-    scene = load_obj()
-    buffers = upload(scene)
-    wide = build_wide_from_buffers(buffers)
-    trace = make_packet_trace(wide, t_min=cfg.t_min, interpret=True)
+    cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=2)
+    buffers = upload(load_obj())
+    trace = payload_trace(buffers, t_min=cfg.t_min)
 
     # single device
     step1 = jax.jit(make_render_step(cfg, buffers, trace_payload_fn=trace))
     st = step1(init_state(cfg.height, cfg.width))
     single = np.asarray(st.accum)
 
-    # 4-device mesh, same trace kernel
+    # 4-device mesh, same trace
     mesh = default_mesh(jax.devices()[:4])
     sstep, sinit = make_sharded_render_step(
         cfg, buffers, mesh, trace_fn=None, trace_payload_fn=trace)
@@ -229,11 +222,11 @@ def test_sharded_env_and_dof_match_single(tmp_path):
     )
 
 
-def test_sharded_deferred_env_matches_single():
-    """OVERSIZED env maps (deferred miss records in the fused regen
-    kernels, round 4) must stay pixel-identical between a row-sharded
-    and a single-device render — the per-sample record planes and the
-    post-kernel sample_environment gather run per shard on local rows."""
+@pytest.mark.parametrize("nee", [False, True], ids=["miss", "env_nee"])
+def test_sharded_oversized_env_matches_single(nee):
+    """OVERSIZED env maps (pooled coarse NEE proposal, lights.py) on a BVH
+    scene must stay pixel-identical between a row-sharded and a
+    single-device render."""
     import jax.numpy as jnp
 
     from sfvp_tpu.dist import default_mesh, make_sharded_render_step
@@ -255,49 +248,8 @@ def test_sharded_deferred_env_matches_single():
     buffers = upload(sphere_mesh(n_lat=16, n_lon=16, bump=0.3))._replace(
         env=big_env)
     cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=3,
-                       sampling="cosine", backend="pallas",
-                       traversal="bvh", packet_tile_size=8)
-    step, sinit = make_sharded_render_step(cfg, buffers, default_mesh())
-    st = step(sinit())
-
-    single = jax.jit(select_render_step(cfg, buffers))(
-        init_state(16, 16))
-    np.testing.assert_allclose(
-        np.asarray(st.accum), np.asarray(single.accum), rtol=1e-6,
-        atol=1e-7,
-    )
-
-
-def test_sharded_deferred_env_nee_matches_single():
-    """Deferred env NEE (round 5: per-bounce NEE records + resident
-    pooled proposal CDF on OVERSIZED maps) must stay pixel-identical
-    between a row-sharded and a single-device render — the per-(sample,
-    bounce) record planes and the post-kernel radiance gather run per
-    shard on local rows, exactly like the miss records."""
-    import jax.numpy as jnp
-
-    from sfvp_tpu.dist import default_mesh, make_sharded_render_step
-    from sfvp_tpu.dispatch import select_render_step
-    from sfvp_tpu.scene.procedural import sphere_mesh
-    from sfvp_tpu.scene.textures import TextureTable
-
-    big_h, big_w = 512, 1024
-    n = big_h * big_w
-    g = np.linspace(0.0, 1.0, n, dtype=np.float32)
-    big_env = TextureTable(
-        tr=jnp.asarray(g),
-        tg=jnp.asarray(np.ascontiguousarray(g[::-1])),
-        tb=jnp.asarray(np.mod(g * 7.0, 1.0)),
-        off=jnp.zeros((1,), jnp.int32),
-        width=jnp.full((1,), big_w, jnp.int32),
-        height=jnp.full((1,), big_h, jnp.int32),
-    )
-    buffers = upload(sphere_mesh(n_lat=16, n_lon=16, bump=0.3))._replace(
-        env=big_env)
-    cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=3,
-                       use_nee=True, use_mis=True,
-                       sampling="cosine", backend="pallas",
-                       traversal="bvh", packet_tile_size=8)
+                       use_nee=nee, use_mis=nee, sampling="cosine",
+                       traversal="bvh")
     step, sinit = make_sharded_render_step(cfg, buffers, default_mesh())
     st = step(sinit())
 

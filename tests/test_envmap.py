@@ -5,6 +5,7 @@ lookup in the integrator, and dispatch routing."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from sfvp_tpu import RenderConfig, init_state, make_render_step, upload
 from sfvp_tpu.render.png import encode_png
@@ -87,145 +88,11 @@ def test_miss_samples_environment(tmp_path):
     np.testing.assert_allclose(img, exp, rtol=1e-5, atol=1e-6)
 
 
-def test_dispatch_small_env_fuses_on_megakernel(tmp_path):
-    """A VMEM-sized env map stays on the fused regen megakernel (the
-    separable one-hot MXU fetch, kernels/imgfetch.py)."""
-    from sfvp_tpu.dispatch import select_render_step
-
-    scene = _far_tri_scene(_quadrant_env(tmp_path))
-    buffers = upload(scene)
-    cfg = RenderConfig(width=8, height=8, spp_per_step=2, max_depth=2,
-                       backend="pallas")
-    step = select_render_step(cfg, buffers)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_regen"
-    out = jax.jit(lambda s: step(s, 0))(init_state(8, 8))
-    assert np.isfinite(np.asarray(out.accum)).all()
-
-
-def test_dispatch_env_fallbacks(tmp_path):
-    """Env NEE (env-only scene under use_nee) fuses on the regen
-    megakernel since round 3 (in-kernel CDF inversion). Oversized env
-    maps stay on BOTH fused regen kernels via deferred miss records
-    since round 4, and NEE + oversized fuses too since round 5
-    (deferred per-bounce NEE records + resident pooled proposal CDF) —
-    NO env configuration leaves the fused kernels anymore."""
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from sfvp_tpu.dispatch import select_render_step
-    from sfvp_tpu.scene.textures import TextureTable
-
-    scene = _far_tri_scene(_quadrant_env(tmp_path))
-    buffers = upload(scene)
-    cfg = RenderConfig(width=8, height=8, spp_per_step=2, max_depth=2,
-                       backend="pallas")
-
-    # env NEE: the scene has no emissive tris, so use_nee importance-
-    # samples the environment — fused in-kernel since round 3
-    step = select_render_step(dataclasses.replace(cfg, use_nee=True),
-                              buffers)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_regen"
-    out = jax.jit(lambda s: step(s, 0))(init_state(8, 8))
-    assert np.isfinite(np.asarray(out.accum)).all()
-
-    # oversized map (1024x512 packs to 6MB > ENV_VMEM_MAX_BYTES)
-    big_h, big_w = 512, 1024
-    n = big_h * big_w
-    big_env = TextureTable(
-        tr=jnp.zeros((n,), jnp.float32), tg=jnp.zeros((n,), jnp.float32),
-        tb=jnp.zeros((n,), jnp.float32),
-        off=jnp.zeros((1,), jnp.int32),
-        width=jnp.full((1,), big_w, jnp.int32),
-        height=jnp.full((1,), big_h, jnp.int32),
-    )
-    big_buffers = buffers._replace(env=big_env)
-    step = select_render_step(cfg, big_buffers)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_regen"
-    step = select_render_step(dataclasses.replace(cfg, use_nee=True),
-                              big_buffers)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_regen"
-
-
-def _big_env_table(big_h=512, big_w=1024):
-    """An OVERSIZED equirect map (1024x512 packs to 6MB >
-    ENV_VMEM_MAX_BYTES) with non-trivial content, built directly as a
-    TextureTable so the test stays cheap."""
-    from sfvp_tpu.scene.textures import TextureTable
-
-    n = big_h * big_w
-    g = np.linspace(0.0, 1.0, n, dtype=np.float32)
-    return TextureTable(
-        tr=jnp.asarray(g),
-        tg=jnp.asarray(np.ascontiguousarray(g[::-1])),
-        tb=jnp.asarray(np.mod(g * 7.0, 1.0)),
-        off=jnp.zeros((1,), jnp.int32),
-        width=jnp.full((1,), big_w, jnp.int32),
-        height=jnp.full((1,), big_h, jnp.int32),
-    )
-
-
-def test_bvh_megakernel_deferred_env_equivalence():
-    """OVERSIZED env maps stay on the fused BVH regen kernel via DEFERRED
-    miss shading (round-4 VERDICT item 5): a miss terminates its sample,
-    so the kernel records one (dir, weight) per (pixel, sample) into
-    output planes and the step shades them with the wavefront loop's
-    exact sample_environment gather — dispatch routes there, and the
-    image matches the wavefront integrator on identical sample streams.
-    Since round 5 env NEE fuses too (deferred per-bounce NEE records +
-    resident pooled proposal CDF, defer_env_nee)."""
-    import dataclasses
-
-    from sfvp_tpu.dispatch import select_render_step, select_trace_fn
-    from sfvp_tpu.scene.procedural import sphere_mesh
-
-    scene = sphere_mesh(n_lat=16, n_lon=16, bump=0.3)
-    buffers = upload(scene)._replace(env=_big_env_table())
-    cfg = RenderConfig(width=16, height=8, spp_per_step=2, max_depth=3,
-                       sampling="cosine", use_rr=True,
-                       backend="pallas", traversal="bvh")
-    step = select_render_step(cfg, buffers)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_bvh"
-    step_nee = select_render_step(
-        dataclasses.replace(cfg, use_nee=True), buffers)
-    assert step_nee.__module__ == "sfvp_tpu.kernels.megakernel_bvh"
-
-    a = jax.jit(make_render_step(
-        cfg, buffers, trace_fn=select_trace_fn(cfg, buffers)
-    ))(init_state(8, 16))
-    b = jax.jit(step)(init_state(8, 16))
-    np.testing.assert_allclose(
-        np.asarray(a.accum), np.asarray(b.accum), rtol=1e-4, atol=1e-6
-    )
-    assert float(a.mrays) == float(b.mrays)
-
-
-def test_brute_megakernel_deferred_env_equivalence(cornell_buffers):
-    """Same deferred-miss mechanism on the BRUTE regen megakernel
-    (small scenes + oversized skies): routes fused and matches the jnp
-    wavefront integrator."""
-    from sfvp_tpu.dispatch import select_render_step
-
-    buffers = cornell_buffers._replace(env=_big_env_table())
-    cfg = RenderConfig(width=16, height=8, spp_per_step=2, max_depth=3,
-                       sampling="cosine", backend="pallas",
-                       traversal="brute")
-    step = select_render_step(cfg, buffers)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_regen"
-    a = jax.jit(make_render_step(cfg, buffers))(init_state(8, 16))
-    b = jax.jit(step)(init_state(8, 16))
-    np.testing.assert_allclose(
-        np.asarray(a.accum), np.asarray(b.accum), rtol=1e-4, atol=1e-6
-    )
-    assert float(a.mrays) == float(b.mrays)
-
-
-def _env_equiv_case(tmp_path, make_kernel_step, n_tris, **cfg_kw):
-    """Shared harness: interpret-mode fused kernel vs the jnp wavefront
-    oracle on an env-lit scene with an area light."""
+def _env_bvh_case(tmp_path, **cfg_kw):
+    """Env-lit scene with an area light: the BVH-traced integrator must
+    match the brute-force one on identical sample streams."""
     from sfvp_tpu.dispatch import select_trace_fn
     from sfvp_tpu.scene.buffers import from_arrays
-    from sfvp_tpu.scene.textures import build_texture_table
 
     g = np.random.default_rng(7)
     img = (g.uniform(0, 1, (8, 16, 3)) * 255).astype(np.uint8)
@@ -233,6 +100,7 @@ def _env_equiv_case(tmp_path, make_kernel_step, n_tris, **cfg_kw):
     p.write_bytes(encode_png(img))
     env = build_texture_table([str(p)], srgb=False)
 
+    n_tris = 40
     tris = (g.uniform(-4, 4, (n_tris, 1, 3))
             + g.normal(0, 0.5, (n_tris, 3, 3))).astype(np.float32)
     kd = g.uniform(0.2, 0.9, (n_tris, 3)).astype(np.float32)
@@ -240,127 +108,25 @@ def _env_equiv_case(tmp_path, make_kernel_step, n_tris, **cfg_kw):
     if not cfg_kw.pop("env_only", False):
         ke[0] = 5.0
     buffers = from_arrays(tris, kd, ke, env=env)
-
-    from sfvp_tpu.integrate.wavefront import make_render_step as mk_wave
-
     cfg = RenderConfig(width=16, height=16, spp_per_step=4, max_depth=4,
-                       **cfg_kw)
-    wave = mk_wave(cfg, buffers, trace_fn=select_trace_fn(cfg, buffers),
-                   global_shape=(16, 16))
-    kern = make_kernel_step(cfg, buffers, global_shape=(16, 16),
-                            interpret=True)
-    st = init_state(16, 16)
-    a = np.asarray(wave(st).accum)
-    b = np.asarray(kern(st).accum)
-    err = np.max(np.abs(a - b)) / max(1e-6, float(np.max(np.abs(a))))
-    assert err < 2e-3, err
+                       traversal="bvh", **cfg_kw)
+    a = np.asarray(jax.jit(make_render_step(cfg, buffers))(
+        init_state(16, 16)).accum)
+    b = np.asarray(jax.jit(make_render_step(
+        cfg, buffers, trace_fn=select_trace_fn(cfg, buffers)))(
+        init_state(16, 16)).accum)
+    np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
     assert float(np.max(a)) > 0
 
 
-def test_regen_megakernel_env_equivalence(tmp_path):
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
-    _env_equiv_case(tmp_path, make_regen_render_step, 6)
-    _env_equiv_case(tmp_path, make_regen_render_step, 6,
-                    use_nee=True, use_mis=True, sampling="cosine")
-
-
-def test_bvh_megakernel_env_equivalence(tmp_path):
-    from sfvp_tpu.kernels.megakernel_bvh import make_bvh_regen_render_step
-
-    _env_equiv_case(tmp_path, make_bvh_regen_render_step, 40,
-                    use_nee=True, use_mis=True, sampling="cosine")
-
-
-def test_regen_megakernel_combined_nee_equivalence(tmp_path):
-    """A scene with BOTH an area light and an env map under NEE runs both
-    strategies per bounce, in-kernel, matching the wavefront (the MIS
-    variant is covered by test_regen_megakernel_env_equivalence)."""
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
-    _env_equiv_case(tmp_path, make_regen_render_step, 6,
-                    use_nee=True, sampling="cosine")
-
-
-def test_bvh_megakernel_combined_nee_equivalence(tmp_path):
-    from sfvp_tpu.kernels.megakernel_bvh import make_bvh_regen_render_step
-
-    _env_equiv_case(tmp_path, make_bvh_regen_render_step, 40,
-                    use_nee=True, sampling="cosine")
-
-
-def test_regen_megakernel_env_nee_equivalence(tmp_path):
-    """In-kernel env NEE (env-only scene): the separable exact-
-    searchsorted CDF inversion + in-kernel shadow rays match the
-    wavefront estimator, with and without MIS."""
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
-    _env_equiv_case(tmp_path, make_regen_render_step, 6,
-                    env_only=True, use_nee=True)
-    _env_equiv_case(tmp_path, make_regen_render_step, 6,
-                    env_only=True, use_nee=True, use_mis=True,
-                    sampling="cosine")
-
-
-def test_bvh_megakernel_env_nee_equivalence(tmp_path):
-    from sfvp_tpu.kernels.megakernel_bvh import make_bvh_regen_render_step
-
-    _env_equiv_case(tmp_path, make_bvh_regen_render_step, 40,
-                    env_only=True, use_nee=True, use_mis=True,
-                    sampling="cosine")
-
-
-def test_env_cdf_inversion_exact():
-    """The separable in-kernel CDF inversion (row-end count + one-hot MXU
-    row select, kernels/imgfetch.py) picks bitwise the same texel as the
-    wavefront's jnp.searchsorted, and returns its exact pdf."""
-    import jax.numpy as jnp
-
-    from sfvp_tpu.integrate.lights import build_env_distribution, env_pdf
-    from sfvp_tpu.kernels.imgfetch import (
-        env_cdf_sample_rows, env_pdf_sa_rows, pack_env_dist_transposed,
-    )
-    from sfvp_tpu.scene.textures import TextureTable
-
-    g = np.random.default_rng(0)
-    H, W = 16, 32
-    img = (g.random((H, W, 3)).astype(np.float32) * 5)
-    img[3, 7] = 500.0  # a sun
-    table = TextureTable(
-        tr=jnp.asarray(img[..., 0].reshape(-1)),
-        tg=jnp.asarray(img[..., 1].reshape(-1)),
-        tb=jnp.asarray(img[..., 2].reshape(-1)),
-        off=jnp.asarray([0], jnp.int32),
-        width=jnp.asarray([W], jnp.int32),
-        height=jnp.asarray([H], jnp.int32),
-    )
-    dist = build_env_distribution(table)
-    cp, re = pack_env_dist_transposed(dist)
-
-    r_sel = g.random((8, 128)).astype(np.float32)
-    # boundary cases: 0, 1, and an exact CDF entry (tie -> side="right")
-    r_sel[0, 0] = 0.0
-    r_sel[0, 1] = 1.0
-    r_sel[0, 2] = float(np.asarray(dist.cdf)[37])
-    rowp, colp, pdfp = env_cdf_sample_rows(
-        jnp.asarray(cp), jnp.asarray(re), jnp.asarray(r_sel), H, W)
-    ti_ref = np.asarray(jnp.minimum(
-        jnp.searchsorted(dist.cdf, r_sel.reshape(-1), side="right"),
-        H * W - 1,
-    ))
-    ti = (np.asarray(rowp) * W + np.asarray(colp)).reshape(-1)
-    np.testing.assert_array_equal(ti.astype(np.int64), ti_ref)
-    np.testing.assert_array_equal(
-        np.asarray(pdfp).reshape(-1), np.asarray(dist.pdf_flat)[ti_ref])
-
-    # env_pdf_sa_rows matches env_pdf to polynomial-trig accuracy
-    d = g.standard_normal((3, 8, 128)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=0, keepdims=True)
-    mine = np.asarray(env_pdf_sa_rows(
-        jnp.asarray(cp), tuple(jnp.asarray(c) for c in d), H, W))
-    ref = np.asarray(env_pdf(dist, tuple(jnp.asarray(c) for c in d)))
-    rel = np.abs(mine - ref) / np.maximum(ref, 1e-12)
-    assert rel.max() < 1e-4, rel.max()
+@pytest.mark.parametrize("case", [
+    dict(),
+    dict(use_nee=True, sampling="cosine"),
+    dict(use_nee=True, use_mis=True, sampling="cosine"),
+    dict(env_only=True, use_nee=True),
+], ids=["env", "combined_nee", "combined_nee_mis", "env_only_nee"])
+def test_env_bvh_matches_brute(tmp_path, case):
+    _env_bvh_case(tmp_path, **dict(case))
 
 
 def _floor_scene(env_path):
@@ -556,101 +322,6 @@ def test_env_distribution_coarse_proposal():
     assert (d44.height, d44.width) == (4, 8)
     np.testing.assert_allclose(np.asarray(d44.pdf_flat).sum(), 1.0,
                                rtol=1e-5)
-
-
-def test_deferred_env_nee_equivalence(tmp_path):
-    """Round-5 VERDICT item 3: env NEE on an OVERSIZED map runs fused —
-    the kernel samples the resident pooled proposal CDF, traces the
-    shadow ray in-kernel, and records (dir, w*vis*brdf*cos*mis/pdf) per
-    (sample, bounce); the step gathers full-res radiance once,
-    post-kernel. Must match the wavefront oracle (which shares the same
-    coarse proposal via env_distribution_for) on identical streams —
-    both kernels, with and without MIS."""
-    from sfvp_tpu.dispatch import select_trace_fn
-    from sfvp_tpu.kernels.megakernel_bvh import make_bvh_regen_render_step
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-    from sfvp_tpu.integrate.wavefront import make_render_step as mk_wave
-    from sfvp_tpu.scene.buffers import from_arrays
-
-    g = np.random.default_rng(3)
-    env = _big_env_table()
-    tris = (g.uniform(-4, 4, (12, 1, 3))
-            + g.normal(0, 0.5, (12, 3, 3))).astype(np.float32)
-    kd = g.uniform(0.2, 0.9, (12, 3)).astype(np.float32)
-    ke = np.zeros((12, 3), np.float32)
-    ke[0] = 5.0  # one area light: combined area + env NEE, both deferred-
-    #              compatible (only the ENV radiance defers)
-    buffers = from_arrays(tris, kd, ke, env=env)
-
-    for mk, trav in ((make_bvh_regen_render_step, "bvh"),
-                     (make_regen_render_step, "brute")):
-        for mis in (False, True):
-            cfg = RenderConfig(width=16, height=16, spp_per_step=2,
-                               max_depth=3, use_nee=True, use_mis=mis,
-                               sampling="cosine", backend="pallas",
-                               traversal=trav)
-            wave = mk_wave(cfg, buffers,
-                           trace_fn=select_trace_fn(cfg, buffers),
-                           global_shape=(16, 16))
-            kern = mk(cfg, buffers, global_shape=(16, 16), interpret=True)
-            st = init_state(16, 16)
-            a = np.asarray(wave(st).accum)
-            b = np.asarray(kern(st).accum)
-            err = np.max(np.abs(a - b)) / max(1e-6, float(np.max(np.abs(a))))
-            assert err < 2e-3, (trav, mis, err)
-            assert float(np.max(a)) > 0
-
-
-def test_deferred_env_nee_dispatch_debug(tmp_path, capfd, monkeypatch):
-    """--nee with a 2048x1024-class sky routes to the measured-fastest
-    path (the wavefront loop since the round-5 on-device A/B —
-    test_oversized_env_nee_prefers_wavefront pins the decision), runs
-    finite, and SFVP_DISPATCH_DEBUG shows the gates. The fused
-    deferred-NEE machinery stays covered by the equivalence tests above
-    via explicit megakernel_bvh knobs."""
-    from sfvp_tpu.dispatch import select_render_step
-    from sfvp_tpu.scene.procedural import sphere_mesh
-
-    monkeypatch.setenv("SFVP_DISPATCH_DEBUG", "1")
-    scene = sphere_mesh(n_lat=16, n_lon=16, bump=0.3)
-    buffers = upload(scene)._replace(env=_big_env_table())
-    cfg = RenderConfig(width=16, height=8, spp_per_step=2, max_depth=3,
-                       use_nee=True, use_mis=True, sampling="cosine",
-                       backend="pallas", traversal="bvh")
-    step = select_render_step(cfg, buffers)
-    err = capfd.readouterr().err
-    assert "wavefront" in err
-    out = jax.jit(lambda s: step(s, 0))(init_state(8, 16))
-    assert np.isfinite(np.asarray(out.accum)).all()
-
-
-def test_oversized_env_nee_prefers_wavefront(capfd, monkeypatch):
-    """Env NEE on an OVERSIZED map routes to the WAVEFRONT loop on the
-    bvh branch — the round-5 on-device A/B measured the fused
-    deferred-NEE route at 0.65 (streamed) / 0.69 (resident, raised
-    Mosaic cap) Mrays/s vs ~0.9 wavefront on the 100k/2048x1024 bench
-    (PROBE_ENVNEE_ROWS_r05.json: the per-(sample, bounce) records
-    multiply the post-kernel radiance gather by max_depth). Non-NEE
-    oversized skies must STAY fused (deferred miss records, 4.77)."""
-    from sfvp_tpu.dispatch import select_render_step
-    from sfvp_tpu.scene.procedural import sphere_mesh
-
-    monkeypatch.setenv("SFVP_DISPATCH_DEBUG", "1")
-    buffers = upload(sphere_mesh(n_lat=16, n_lon=16, bump=0.3))._replace(
-        env=_big_env_table())
-    cfg = RenderConfig(width=16, height=8, spp_per_step=2, max_depth=3,
-                       use_nee=True, use_mis=True, sampling="cosine",
-                       backend="pallas", traversal="bvh")
-    select_render_step(cfg, buffers)
-    err = capfd.readouterr().err
-    assert "wavefront" in err
-    # without NEE the same sky stays fused via deferred miss records
-    import dataclasses
-
-    nonee = dataclasses.replace(cfg, use_nee=False, use_mis=False)
-    select_render_step(nonee, buffers)
-    err = capfd.readouterr().err
-    assert "megakernel_bvh" in err and "env_deferred=True" in err
 
 
 def test_coarse_proposal_unbiased(tmp_path):

@@ -206,44 +206,40 @@ def test_glossy_nee_matches_bsdf_only():
     assert np.isfinite(img_nee).all() and np.isfinite(img_mis).all()
 
 
-def test_glossy_payload_path_matches_jnp():
-    """The packet/payload path (packed mtype+rough lane) must reproduce the
-    jnp gather path on a glossy scene (interpret mode)."""
-    from sfvp_tpu.accel.wide import build_wide_from_buffers
-    from sfvp_tpu.kernels.bvh_packet import make_packet_trace
-
+def test_glossy_payload_path_matches_jnp(payload_trace):
+    """The integrator's payload path (packed mtype+rough value) must
+    reproduce the jnp gather path on a glossy scene."""
     spec = [0.8, 0.7, 0.6]
     scene = _scene(_MIRROR_WALL, [0, 0, 0], [0, 0, 0], spec, [2, 2],
                    rough=0.3)
     buffers = upload(scene)
     cfg = RenderConfig(width=8, height=8, spp_per_step=4, max_depth=3)
     a = _render(cfg, buffers)
-    wide = build_wide_from_buffers(buffers)
-    trace = make_packet_trace(wide, t_min=cfg.t_min, interpret=True)
+    trace = payload_trace(buffers, t_min=cfg.t_min)
     step = jax.jit(make_render_step(cfg, buffers, trace_payload_fn=trace))
     b = np.asarray(step(init_state(8, 8)).accum)
-    # packed-lane roughness is quantized by the f32 fraction — exact here
+    # packed roughness is quantized by the f32 fraction — exact here
     np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-6)
 
 
 def test_dispatch_routes_glossy_to_wavefront(tmp_path):
-    """select_render_step on a glossy scene must not pick a megakernel."""
+    """select_render_step on a glossy scene must not pick the fused
+    kernel."""
     from sfvp_tpu.dispatch import select_render_step
 
     scene = _scene(_MIRROR_WALL, [0, 0, 0], [0, 0, 0], [1, 1, 1], [2, 2],
                    rough=0.5)
     buffers = upload(scene)
-    cfg = RenderConfig(width=8, height=8, spp_per_step=2, max_depth=2,
-                       backend="pallas")
+    cfg = RenderConfig(width=8, height=8, spp_per_step=2, max_depth=2)
     step = select_render_step(cfg, buffers)
+    assert step.__module__ == "sfvp_tpu.integrate.wavefront"
     out = jax.jit(lambda s: step(s, 0))(init_state(8, 8))
     assert np.isfinite(np.asarray(out.accum)).all()
 
 
 def test_textured_glossy_mixed_scene(tmp_path):
     """A scene mixing a textured diffuse face and a glossy face renders
-    finite through the wavefront route (textures force the jnp path even
-    when glossy is present)."""
+    finite through the wavefront route."""
     from sfvp_tpu.render.png import encode_png
 
     img = np.full((4, 4, 3), 200, np.uint8)
@@ -270,7 +266,7 @@ def test_textured_glossy_mixed_scene(tmp_path):
     cam = CameraConfig.look_at(origin=(0, 0, 3), target=(0, 0, 0),
                                fov_y_deg=60)
     cfg = RenderConfig(width=16, height=16, spp_per_step=4, max_depth=3,
-                       camera=cam, sampling="cosine", backend="pallas")
+                       camera=cam, sampling="cosine")
     step = select_render_step(cfg, buffers)
     out = jax.jit(lambda s: step(s, 0))(init_state(16, 16))
     img_out = np.asarray(out.accum)

@@ -188,3 +188,43 @@ def test_mrays_counter(cornell):
     n_rays = 16 * 16 * 2  # pixels * spp
     # every ray traces at least 1 and at most max_depth segments
     assert n_rays / 1e6 <= mrays <= n_rays * 8 / 1e6
+
+
+def test_integrator_payload_path_matches_jnp(cornell_buffers, payload_trace):
+    """The trace_payload_fn hook (shading from a Payload, per-bounce ray
+    sort) == the gather-based integrator on identical sample streams;
+    the sort permutes rays and scatters colors back, so only f32
+    summation order may differ."""
+    cfg = RenderConfig(width=16, height=8, spp_per_step=2, max_depth=3)
+    trace = payload_trace(cornell_buffers, t_min=cfg.t_min)
+    step_pay = jax.jit(
+        make_render_step(cfg, cornell_buffers, trace_payload_fn=trace))
+    step_jnp = jax.jit(make_render_step(cfg, cornell_buffers))
+    a = step_pay(init_state(8, 16))
+    b = step_jnp(init_state(8, 16))
+    np.testing.assert_allclose(np.asarray(a.accum), np.asarray(b.accum),
+                               rtol=1e-5, atol=1e-6)
+    assert float(a.mrays) == float(b.mrays)
+
+
+def test_integrator_nee_with_occlusion_kernel(cornell_buffers, payload_trace):
+    """Payload trace + a dedicated any-hit occlusion_fn for NEE shadow
+    rays == the jnp NEE integrator."""
+    from sfvp_tpu.kernels.intersect import trace_brute_jnp
+
+    cfg = RenderConfig(width=16, height=8, spp_per_step=1, max_depth=2,
+                       use_nee=True, sampling="cosine")
+
+    def occluded(o, d, t_max, active=None):
+        hit = trace_brute_jnp(o, d, cornell_buffers, np.float32(cfg.t_min),
+                              t_max, active=active)
+        return hit.prim >= 0
+
+    step_pk = jax.jit(make_render_step(
+        cfg, cornell_buffers,
+        trace_payload_fn=payload_trace(cornell_buffers, t_min=cfg.t_min),
+        occlusion_fn=occluded))
+    step_jnp = jax.jit(make_render_step(cfg, cornell_buffers))
+    a = np.asarray(step_pk(init_state(8, 16)).accum)
+    b = np.asarray(step_jnp(init_state(8, 16)).accum)
+    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)

@@ -1,8 +1,12 @@
-"""Pallas megakernel equivalence tests (interpret mode on CPU).
+"""Fused Cornell kernel (kernels/megakernel.py) against the jnp wavefront
+integrator.
 
-The megakernel must produce BITWISE-identical images to the jnp wavefront
-integrator (same formulas, same op order, same PCG streams). Interpret mode
-is slow, so these stay tiny; the same kernel runs compiled on real TPU.
+On the CPU the kernel runs in the Pallas interpreter, where it executes
+the same ops in the same order as the jnp integrator, so images match to
+within the regen-kernel tolerance (rtol 1e-5, atol 1e-6) and the segment
+counts exactly. Interpret mode is slow, so the cases stay tiny. The
+compiled kernel is checked on the card by ``test_compiled_kernel_matches_jnp``
+(marker ``gpu``, run by chip_smoke.py) and at full size by chip_smoke.py.
 """
 
 import numpy as np
@@ -10,7 +14,9 @@ import jax
 import pytest
 
 from sfvp_tpu import RenderConfig, init_state, load_obj, make_render_step, upload
-from sfvp_tpu.kernels.megakernel import make_render_step_pallas, scene_table
+from sfvp_tpu.kernels.megakernel import (
+    make_render_step_gpu, scene_table, unsupported,
+)
 
 
 @pytest.fixture(scope="module")
@@ -18,470 +24,124 @@ def buffers():
     return upload(load_obj())
 
 
-def _compare(cfg, buffers, steps=1):
+def _mirror_buffers():
+    """Cornell box with the tall block turned into a tinted mirror."""
+    scene = load_obj()
+    t = scene.num_triangles
+    mt = np.zeros((t,), np.int32)
+    mt[-12:] = 1
+    spec = np.zeros((t, 3), np.float32)
+    spec[-12:] = (0.9, 0.8, 0.7)
+    scene.face_mat_type = mt
+    scene.face_specular = spec
+    return upload(scene)
+
+
+def _compare(cfg, buffers, steps=1, interpret=True):
     step_jnp = jax.jit(make_render_step(cfg, buffers))
-    step_meg = jax.jit(make_render_step_pallas(cfg, buffers, interpret=True))
+    step_gpu = jax.jit(make_render_step_gpu(cfg, buffers, interpret=interpret))
     a = init_state(cfg.height, cfg.width)
     b = init_state(cfg.height, cfg.width)
     for _ in range(steps):
         a = step_jnp(a)
-        b = step_meg(b)
-    return np.asarray(a.accum), np.asarray(b.accum), a, b
+        b = step_gpu(b)
+    np.testing.assert_allclose(
+        np.asarray(b.accum), np.asarray(a.accum), rtol=1e-5, atol=1e-6)
+    return a, b
+
+
+@pytest.mark.parametrize("mirror", [False, True], ids=["diffuse", "mirror"])
+@pytest.mark.parametrize("rr", [False, True], ids=["no_rr", "rr"])
+@pytest.mark.parametrize("sampling", ["uniform", "cosine"])
+def test_kernel_matches_jnp(buffers, sampling, rr, mirror):
+    bufs = _mirror_buffers() if mirror else buffers
+    if mirror:
+        assert not unsupported(RenderConfig(), bufs)
+    cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=3,
+                       sampling=sampling, use_rr=rr, rr_start_depth=1)
+    a, b = _compare(cfg, bufs)
+    assert float(a.mrays) == float(b.mrays)
 
 
 def test_megakernel_bitwise_equivalence(buffers):
+    """Parity config at a tiny size: same bits as the jnp integrator."""
     cfg = RenderConfig(width=16, height=8, spp_per_step=1, max_depth=2)
-    ia, ib, sa, sb = _compare(cfg, buffers)
-    np.testing.assert_array_equal(ia, ib)
-    assert float(sa.mrays) == float(sb.mrays)
+    a, b = _compare(cfg, buffers)
+    np.testing.assert_array_equal(np.asarray(a.accum), np.asarray(b.accum))
+    assert float(a.mrays) == float(b.mrays)
 
 
 def test_megakernel_second_frame_and_accum(buffers):
+    """The running mean over steps (frame counter read in-kernel)."""
     cfg = RenderConfig(width=8, height=8, spp_per_step=2, max_depth=2)
-    ia, ib, sa, sb = _compare(cfg, buffers, steps=2)
-    np.testing.assert_array_equal(ia, ib)
-    assert int(sb.frame) == 2
+    _, b = _compare(cfg, buffers, steps=2)
+    assert int(b.frame) == 2
 
 
 def test_megakernel_cosine_mode(buffers):
     cfg = RenderConfig(
         width=8, height=8, spp_per_step=1, max_depth=1, sampling="cosine"
     )
-    ia, ib, _, _ = _compare(cfg, buffers)
-    np.testing.assert_array_equal(ia, ib)
+    _compare(cfg, buffers)
 
 
 def test_megakernel_nondivisible_wave(buffers):
-    """Wave size not a multiple of 128 lanes (24x24=576 pixels) must pad
-    internally and still match."""
+    """Pixel count not a multiple of the block (24x8 = 192 pixels, block
+    128): the tail program masks its loads and stores and still matches."""
     cfg = RenderConfig(width=24, height=8, spp_per_step=1, max_depth=1)
-    ia, ib, _, _ = _compare(cfg, buffers)
-    np.testing.assert_array_equal(ia, ib)
+    step_jnp = jax.jit(make_render_step(cfg, buffers))
+    step_gpu = jax.jit(make_render_step_gpu(cfg, buffers, interpret=True))
+    a = step_jnp(init_state(8, 24))
+    b = step_gpu(init_state(8, 24))
+    np.testing.assert_allclose(
+        np.asarray(b.accum), np.asarray(a.accum), rtol=1e-5, atol=1e-6)
+    assert float(a.mrays) == float(b.mrays)
 
 
 def test_megakernel_row_offset(buffers):
-    """row0 (sharded band) parity: rendering rows [8,16) of a 16-row image
-    must equal that band of the full render."""
-    cfg = RenderConfig(width=16, height=8, spp_per_step=1, max_depth=1)
-    step_full = jax.jit(make_render_step_pallas(cfg, buffers, interpret=True))
-    full = np.asarray(step_full(init_state(8, 16)).accum)
-
-    band_step = make_render_step_pallas(
-        cfg, buffers, global_shape=(8, 16), interpret=True
-    )
-    band = np.asarray(
-        jax.jit(lambda s: band_step(s, row0=4))(init_state(4, 16)).accum
-    )
-    np.testing.assert_array_equal(band, full[4:])
-
-
-def test_regen_kernel_equivalence(buffers):
-    """Sample-regeneration megakernel == jnp integrator (tiny, interpret).
-    Identical per-sample streams; summation order may differ by ~1 ulp."""
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
-    cfg = RenderConfig(width=16, height=8, spp_per_step=3, max_depth=3)
-    a = jax.jit(make_render_step(cfg, buffers))(init_state(8, 16))
-    b = jax.jit(make_regen_render_step(cfg, buffers, interpret=True))(
-        init_state(8, 16)
-    )
-    np.testing.assert_allclose(
-        np.asarray(a.accum), np.asarray(b.accum), rtol=1e-5, atol=1e-7
-    )
-    assert float(a.mrays) == float(b.mrays)
-
-
-def test_regen_kernel_nee_equivalence(buffers):
-    """In-kernel NEE (light CDF select + shadow loop) == jnp NEE path."""
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
-    cfg = RenderConfig(
-        width=16, height=8, spp_per_step=2, max_depth=3, use_nee=True,
-        sampling="cosine", use_rr=True, rr_start_depth=1,
-    )
-    a = jax.jit(make_render_step(cfg, buffers))(init_state(8, 16))
-    b = jax.jit(make_regen_render_step(cfg, buffers, interpret=True))(
-        init_state(8, 16)
-    )
-    np.testing.assert_allclose(
-        np.asarray(a.accum), np.asarray(b.accum), rtol=1e-4, atol=1e-6
-    )
-    assert float(a.mrays) == float(b.mrays)
-
-
-def test_light_select_rows_bitwise():
-    """imgfetch.light_select_rows (one-hot MXU select) picks bitwise the
-    light the unrolled ``li = sum(r_sel > cdf[i])`` chain picks, for
-    every field, including r_sel landing exactly on CDF boundaries."""
-    import jax.numpy as jnp
-
-    from sfvp_tpu.integrate.lights import LightTable
-    from sfvp_tpu.kernels.imgfetch import (
-        light_select_rows, pack_light_table_mxu,
-    )
-
-    g = np.random.default_rng(11)
-    L = 90
-    cols = [jnp.asarray(g.uniform(-3, 3, L).astype(np.float32))
-            for _ in range(15)]
-    area = g.uniform(0.1, 2.0, L)
-    cdf = (np.cumsum(area) / area.sum()).astype(np.float32)
-    lt = LightTable(
-        v0=tuple(cols[0:3]), v1=tuple(cols[3:6]), v2=tuple(cols[6:9]),
-        n=tuple(cols[9:12]), le=tuple(cols[12:15]),
-        cdf=jnp.asarray(cdf), total_area=float(area.sum()), num=L,
-    )
-    tab_np, cdfb_np, _ = pack_light_table_mxu(lt)
-    r_sel = g.uniform(0, 1, (4, 128)).astype(np.float32)
-    # boundary cases: exact CDF values, 0, and ~1
-    r_sel[0, :10] = cdf[:10]
-    r_sel[0, 10] = 0.0
-    r_sel[0, 11] = np.float32(1.0)
-    fld = light_select_rows(
-        jnp.asarray(tab_np), jnp.asarray(cdfb_np), jnp.asarray(r_sel), L)
-
-    li = np.zeros((4, 128), np.int64)
-    for i in range(L - 1):
-        li += (r_sel > cdf[i]).astype(np.int64)
-    for k in range(15):
-        exp = np.asarray(cols[k])[li]
-        np.testing.assert_array_equal(np.asarray(fld[k]), exp)
-
-
-def test_light_select_rows_bucketed_bitwise():
-    """imgfetch.light_select_rows_bucketed (two-level MXU select) picks
-    bitwise the light the unrolled chain picks — across 128-light bucket
-    boundaries, on full and partial terminal buckets, and for r past the
-    last CDF entry (the L-1 clamp)."""
-    import jax.numpy as jnp
-
-    from sfvp_tpu.integrate.lights import LightTable
-    from sfvp_tpu.kernels.imgfetch import (
-        light_select_rows_bucketed, pack_light_table_bucketed,
-    )
-
-    g = np.random.default_rng(17)
-    for L in (200, 1280, 1337):
-        cols = [jnp.asarray(g.uniform(-3, 3, L).astype(np.float32))
-                for _ in range(15)]
-        area = g.uniform(0.1, 2.0, L)
-        # scale so cdf[-1] < 1: r = 1.0 then exercises the terminal clamp
-        cdf = (np.cumsum(area) / area.sum() * 0.999).astype(np.float32)
-        lt = LightTable(
-            v0=tuple(cols[0:3]), v1=tuple(cols[3:6]), v2=tuple(cols[6:9]),
-            n=tuple(cols[9:12]), le=tuple(cols[12:15]),
-            cdf=jnp.asarray(cdf), total_area=float(area.sum()), num=L,
-        )
-        mtab_np, bend_np = pack_light_table_bucketed(lt)
-        r_sel = g.uniform(0, 1, (4, 128)).astype(np.float32)
-        # boundary cases: exact CDF values spanning the bucket-0/1 edge,
-        # 0, and 1.0 (> cdf[-1] = 0.999 -> the L-1 clamp)
-        r_sel[0, :10] = cdf[123:133]
-        r_sel[0, 10] = 0.0
-        r_sel[0, 11] = np.float32(1.0)
-        fld = light_select_rows_bucketed(
-            jnp.asarray(mtab_np), jnp.asarray(bend_np),
-            jnp.asarray(r_sel), L)
-
-        li = np.zeros((4, 128), np.int64)
-        for i in range(L - 1):
-            li += (r_sel > cdf[i]).astype(np.int64)
-        for k in range(15):
-            exp = np.asarray(cols[k])[li]
-            np.testing.assert_array_equal(
-                np.asarray(fld[k]), exp, err_msg=f"L={L} field {k}")
-
-
-def test_regen_kernel_bucketed_lights_equivalence():
-    """The BUCKETED two-level select plumbed through the brute regen
-    megakernel (LIGHT_FLAT_MAX patched below the 80-light table so the
-    small scene takes the big-table path) == the wavefront searchsorted
-    NEE path. Kept at the 80-light scene size: brute-kernel XLA CPU
-    compile time explodes past ~100 tris, and the multi-bucket math is
-    already pinned bitwise at L=200/1280/1337 by
-    test_light_select_rows_bucketed_bitwise and through a real kernel by
-    test_megakernel_bvh.py::test_bvh_regen_bucketed_lights_equivalence
-    (140 lights, 2 buckets)."""
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.kernels import imgfetch as IF
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-    from sfvp_tpu.scene.objload import Scene
-    from sfvp_tpu import upload as _upload
-
-    rng_ = np.random.default_rng(9)
-    big = 6.0
-    tris = [
-        [[-big, 0, -big], [big, 0, -big], [big, 0, big]],
-        [[-big, 0, -big], [big, 0, big], [-big, 0, big]],
-    ]
-    emission = [[0.0, 0.0, 0.0], [0.0, 0.0, 0.0]]
-    for i in range(80):
-        cx = -5.0 + (i % 10) * 1.0
-        cz = -5.0 + (i // 10) * 1.2
-        s = 0.15 + 0.1 * rng_.random()
-        tris.append([[cx - s, 3.0, cz - s], [cx + s, 3.0, cz - s],
-                     [cx, 3.0, cz + s]])
-        emission.append(list(2.0 + 4.0 * rng_.random(3)))
-    t = len(tris)
-    scene = Scene(
-        vertices=np.asarray(tris, np.float32).reshape(-1, 3),
-        indices=np.arange(3 * t, dtype=np.uint32),
-        face_diffuse=np.tile(
-            np.asarray([[0.6, 0.5, 0.4]], np.float32), (t, 1)),
-        face_emission=np.asarray(emission, np.float32),
-    )
-    bufs = _upload(scene)
-    cam = CameraConfig.look_at(origin=(0.0, 1.8, 5.5), target=(0, 0.5, 0),
-                               fov_y_deg=50)
-    cfg = RenderConfig(width=16, height=8, spp_per_step=1, max_depth=2,
-                       camera=cam, sampling="cosine", use_nee=True,
-                       use_mis=True, sky_emission=(0.05, 0.05, 0.05))
-    a = jax.jit(make_render_step(cfg, bufs))(init_state(8, 16))
-    saved = IF.LIGHT_FLAT_MAX
-    IF.LIGHT_FLAT_MAX = 64
-    try:
-        b = jax.jit(make_regen_render_step(cfg, bufs, interpret=True))(
-            init_state(8, 16)
-        )
-    finally:
-        IF.LIGHT_FLAT_MAX = saved
-    np.testing.assert_allclose(
-        np.asarray(a.accum), np.asarray(b.accum), rtol=1e-4, atol=1e-6
-    )
-    assert float(a.mrays) == float(b.mrays)
-
-
-def test_regen_kernel_many_lights_equivalence():
-    """80 lights on the brute path — past LIGHT_UNROLL_MAX, exercising
-    the one-hot MXU light select in megakernel_regen == the wavefront
-    searchsorted NEE path."""
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-    from sfvp_tpu.scene.objload import Scene
-    from sfvp_tpu import upload as _upload
-
-    rng_ = np.random.default_rng(5)
-    big = 6.0
-    tris = [
-        [[-big, 0, -big], [big, 0, -big], [big, 0, big]],
-        [[-big, 0, -big], [big, 0, big], [-big, 0, big]],
-    ]
-    emission = [[0.0, 0.0, 0.0], [0.0, 0.0, 0.0]]
-    for i in range(80):
-        cx = -5.0 + (i % 10) * 1.0
-        cz = -5.0 + (i // 10) * 1.2
-        s = 0.15 + 0.1 * rng_.random()
-        tris.append([[cx - s, 3.0, cz - s], [cx + s, 3.0, cz - s],
-                     [cx, 3.0, cz + s]])
-        emission.append(list(2.0 + 4.0 * rng_.random(3)))
-    t = len(tris)
-    scene = Scene(
-        vertices=np.asarray(tris, np.float32).reshape(-1, 3),
-        indices=np.arange(3 * t, dtype=np.uint32),
-        face_diffuse=np.tile(
-            np.asarray([[0.6, 0.5, 0.4]], np.float32), (t, 1)),
-        face_emission=np.asarray(emission, np.float32),
-    )
-    bufs = _upload(scene)
-    cam = CameraConfig.look_at(origin=(0.0, 1.8, 5.5), target=(0, 0.5, 0),
-                               fov_y_deg=50)
-    cfg = RenderConfig(width=16, height=8, spp_per_step=1, max_depth=2,
-                       camera=cam, sampling="cosine", use_nee=True,
-                       use_mis=True, sky_emission=(0.05, 0.05, 0.05))
-    a = jax.jit(make_render_step(cfg, bufs))(init_state(8, 16))
-    b = jax.jit(make_regen_render_step(cfg, bufs, interpret=True))(
-        init_state(8, 16)
-    )
-    np.testing.assert_allclose(
-        np.asarray(a.accum), np.asarray(b.accum), rtol=1e-4, atol=1e-6
-    )
-    assert float(a.mrays) == float(b.mrays)
-
-
-def test_regen_kernel_mis_equivalence(buffers):
-    """In-kernel balance-heuristic MIS (pdf carry + both weights) == the
-    wavefront MIS path, including RR."""
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
-    cfg = RenderConfig(
-        width=16, height=8, spp_per_step=2, max_depth=3, use_nee=True,
-        use_mis=True, sampling="cosine", use_rr=True, rr_start_depth=1,
-    )
-    a = jax.jit(make_render_step(cfg, buffers))(init_state(8, 16))
-    b = jax.jit(make_regen_render_step(cfg, buffers, interpret=True))(
-        init_state(8, 16)
-    )
-    np.testing.assert_allclose(
-        np.asarray(a.accum), np.asarray(b.accum), rtol=1e-4, atol=1e-6
-    )
-    assert float(a.mrays) == float(b.mrays)
-
-
-def test_regen_kernel_dof_equivalence(buffers):
-    """In-kernel thin-lens DOF (two extra draws + lens offset in the regen
-    block) == the wavefront apply_thin_lens_soa path."""
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
-    cfg = RenderConfig(
-        width=16, height=8, spp_per_step=2, max_depth=2,
-        camera=CameraConfig(lens_radius=0.12, focus_dist=3.0),
-    )
-    a = jax.jit(make_render_step(cfg, buffers))(init_state(8, 16))
-    b = jax.jit(make_regen_render_step(cfg, buffers, interpret=True))(
-        init_state(8, 16)
-    )
-    np.testing.assert_allclose(
-        np.asarray(a.accum), np.asarray(b.accum), rtol=1e-5, atol=1e-6
-    )
-    assert float(a.mrays) == float(b.mrays)
-
-
-def test_regen_kernel_dof_mis_combo_equivalence(buffers):
-    """DOF + NEE + MIS + RR together: the lens draws must come between
-    the jitter draws and the NEE draws exactly like the wavefront."""
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
-    cfg = RenderConfig(
-        width=16, height=8, spp_per_step=2, max_depth=3,
-        camera=CameraConfig(lens_radius=0.12, focus_dist=3.0),
-        use_nee=True, use_mis=True, use_rr=True, rr_start_depth=1,
-        sampling="cosine",
-    )
-    a = jax.jit(make_render_step(cfg, buffers))(init_state(8, 16))
-    b = jax.jit(make_regen_render_step(cfg, buffers, interpret=True))(
-        init_state(8, 16)
-    )
-    np.testing.assert_allclose(
-        np.asarray(a.accum), np.asarray(b.accum), rtol=1e-4, atol=1e-6
-    )
-    assert float(a.mrays) == float(b.mrays)
-
-
-def test_regen_kernel_dof_needs_focus(buffers):
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
-    cfg = RenderConfig(
-        width=16, height=8,
-        camera=CameraConfig(lens_radius=0.12, focus_dist=0.0),
-    )
-    with pytest.raises(ValueError, match="focus_dist"):
-        make_regen_render_step(cfg, buffers, interpret=True)
-
-
-def _glossy_scene():
-    from sfvp_tpu.scene.objload import Scene
-
-    big = 4.0
-    tris = [
-        [[-big, 0, -big], [big, 0, -big], [big, 0, big]],
-        [[-big, 0, -big], [big, 0, big], [-big, 0, big]],
-        [[-0.4, 2.0, -0.4], [0.4, 2.0, -0.4], [0.4, 2.0, 0.4]],
-        [[-0.4, 2.0, -0.4], [0.4, 2.0, 0.4], [-0.4, 2.0, 0.4]],
-    ]
-    return Scene(
-        vertices=np.asarray(tris, np.float32).reshape(-1, 3),
-        indices=np.arange(12, dtype=np.uint32),
-        face_diffuse=np.zeros((4, 3), np.float32),
-        face_emission=np.asarray(
-            [[0, 0, 0], [0, 0, 0], [6, 5, 4], [6, 5, 4]], np.float32),
-        face_specular=np.asarray(
-            [[0.9, 0.8, 0.7]] * 2 + [[0, 0, 0]] * 2, np.float32),
-        face_mat_type=np.asarray([2, 2, 0, 0], np.int32),
-        face_rough=np.asarray([0.35, 0.35, 0, 0], np.float32),
-    )
-
-
-def test_regen_kernel_glossy_equivalence():
-    """In-kernel GGX (VNDF sample, Smith height-correlated, NEE eval +
-    MIS VNDF pdf) == the wavefront integrator on a glossy-floor scene,
-    through the BRUTE regen kernel (material from the scene table's
-    Ks/mtype/rough rows)."""
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
-    cam = CameraConfig.look_at(origin=(0.0, 1.4, 3.2), target=(0, 0, 0),
-                               fov_y_deg=45)
-    bufs = upload(_glossy_scene())
-    for nee, mis in ((False, False), (True, False), (True, True)):
-        cfg = RenderConfig(width=16, height=8, spp_per_step=2, max_depth=3,
-                           camera=cam, sampling="cosine", use_nee=nee,
-                           use_mis=mis, sky_emission=(0.1, 0.1, 0.1))
-        a = jax.jit(make_render_step(cfg, bufs))(init_state(8, 16))
-        b = jax.jit(make_regen_render_step(cfg, bufs, interpret=True))(
-            init_state(8, 16)
-        )
-        np.testing.assert_allclose(
-            np.asarray(a.accum), np.asarray(b.accum), rtol=1e-4, atol=1e-6
-        )
-
-
-def test_regen_kernel_dielectric_equivalence():
-    """In-kernel smooth dielectric (Snell + exact Fresnel, TIR, r1-reused
-    reflect/refract choice, specular NEE gating) == the wavefront
-    integrator, through the BRUTE regen kernel (IOR from the scene
-    table's rough row, encoded (Ni-1)/4)."""
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-    from sfvp_tpu.scene.objload import Scene
-
-    big = 4.0
-    tris = [
-        [[-big, 0, -big], [big, 0, -big], [big, 0, big]],
-        [[-big, 0, -big], [big, 0, big], [-big, 0, big]],
-        [[-1.5, 1.0, -1.5], [1.5, 1.2, -1.5], [1.5, 1.2, 1.5]],
-        [[-1.5, 1.0, -1.5], [1.5, 1.2, 1.5], [-1.5, 1.0, 1.5]],
-        [[-0.4, 2.5, -0.4], [0.4, 2.5, -0.4], [0.4, 2.5, 0.4]],
-        [[-0.4, 2.5, -0.4], [0.4, 2.5, 0.4], [-0.4, 2.5, 0.4]],
-    ]
-    enc = (1.5 - 1.0) / 4.0
-    scene = Scene(
-        vertices=np.asarray(tris, np.float32).reshape(-1, 3),
-        indices=np.arange(18, dtype=np.uint32),
-        face_diffuse=np.asarray(
-            [[0.7, 0.6, 0.5]] * 2 + [[0, 0, 0]] * 4, np.float32),
-        face_emission=np.asarray(
-            [[0, 0, 0]] * 4 + [[6, 5, 4]] * 2, np.float32),
-        face_specular=np.asarray(
-            [[0, 0, 0]] * 2 + [[0.95, 0.97, 1.0]] * 2 + [[0, 0, 0]] * 2,
-            np.float32),
-        face_mat_type=np.asarray([0, 0, 3, 3, 0, 0], np.int32),
-        face_rough=np.asarray([0, 0, enc, enc, 0, 0], np.float32),
-    )
-    cam = CameraConfig.look_at(origin=(0.0, 1.8, 3.2), target=(0, 0.5, 0),
-                               fov_y_deg=45)
-    bufs = upload(scene)
-    for nee, mis in ((False, False), (True, False), (True, True)):
-        cfg = RenderConfig(width=16, height=8, spp_per_step=2, max_depth=4,
-                           camera=cam, sampling="cosine", use_nee=nee,
-                           use_mis=mis, sky_emission=(0.1, 0.1, 0.1))
-        a = jax.jit(make_render_step(cfg, bufs))(init_state(8, 16))
-        b = jax.jit(make_regen_render_step(cfg, bufs, interpret=True))(
-            init_state(8, 16)
-        )
-        np.testing.assert_allclose(
-            np.asarray(a.accum), np.asarray(b.accum), rtol=1e-4, atol=1e-6
-        )
-
-
-def test_regen_kernel_row_offset(buffers):
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
+    """row0 (sharded band): rendering rows [4, 8) of an 8-row image must
+    equal that band of the full render."""
     cfg = RenderConfig(width=16, height=8, spp_per_step=1, max_depth=2)
-    full = np.asarray(
-        jax.jit(make_regen_render_step(cfg, buffers, interpret=True))(
-            init_state(8, 16)
-        ).accum
-    )
-    band_step = make_regen_render_step(
-        cfg, buffers, global_shape=(8, 16), interpret=True
-    )
+    full = np.asarray(jax.jit(make_render_step_gpu(cfg, buffers,
+                                                   interpret=True))(
+        init_state(8, 16)).accum)
+    band_step = make_render_step_gpu(cfg, buffers, global_shape=(8, 16),
+                                     interpret=True)
     band = np.asarray(
-        jax.jit(lambda s: band_step(s, row0=4))(init_state(4, 16)).accum
-    )
+        jax.jit(lambda s: band_step(s, row0=4))(init_state(4, 16)).accum)
     np.testing.assert_array_equal(band, full[4:])
+
+
+def test_kernel_refuses_cpu_without_interpret(buffers):
+    """Off the GPU the factory raises instead of silently interpreting."""
+    assert jax.default_backend() == "cpu"
+    with pytest.raises(ValueError, match="GPU only"):
+        make_render_step_gpu(RenderConfig(width=8, height=8), buffers)
+
+
+def test_kernel_refuses_unsupported_config(buffers):
+    with pytest.raises(ValueError, match="next-event estimation"):
+        make_render_step_gpu(RenderConfig(width=8, height=8, use_nee=True),
+                             buffers, interpret=True)
+
+
+def test_unsupported_lists_each_feature(buffers, tmp_path):
+    from sfvp_tpu.config import CameraConfig
+    from sfvp_tpu.scene.buffers import from_arrays
+
+    assert unsupported(RenderConfig(), buffers) == []
+    cfg = RenderConfig(use_nee=True,
+                       camera=CameraConfig(lens_radius=0.1, focus_dist=3.0))
+    g = np.random.default_rng(0)
+    tris = g.uniform(-1, 1, (4, 3, 3)).astype(np.float32)
+    z = np.zeros((4, 3), np.float32)
+    bufs = from_arrays(tris, z, z, specular=z + 0.5,
+                       mat_type=np.asarray([0, 1, 2, 3], np.int32),
+                       rough=np.full(4, 0.3, np.float32))
+    assert unsupported(cfg, bufs) == [
+        "next-event estimation", "thin-lens depth of field",
+        "GGX glossy material", "dielectric material",
+    ]
 
 
 def test_scene_table_layout(buffers):
@@ -492,3 +152,21 @@ def test_scene_table_layout(buffers):
     np.testing.assert_array_equal(tbl[15], np.asarray(buffers.sr))
     np.testing.assert_array_equal(tbl[18], np.asarray(buffers.mtype, dtype=np.float32))
     np.testing.assert_array_equal(tbl[19], np.asarray(buffers.rough))
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_jnp(gpu_backend, buffers):
+    """The kernel as compiled for the card against the jnp integrator on
+    the same card (64^2, parity config, mirror and cosine+RR variants).
+    The GPU's sin/cos/sqrt and FMA contraction differ between the two
+    programs and can flip single paths, so the check is statistical:
+    relative RMSE <= 1%."""
+    for bufs, kw in ((buffers, {}), (_mirror_buffers(),
+                                     dict(sampling="cosine", use_rr=True))):
+        cfg = RenderConfig(width=64, height=64, spp_per_step=4, **kw)
+        a = jax.jit(make_render_step(cfg, bufs))(init_state(64, 64))
+        b = jax.jit(make_render_step_gpu(cfg, bufs))(init_state(64, 64))
+        a, b = np.asarray(a.accum), np.asarray(b.accum)
+        assert np.isfinite(b).all()
+        rel = np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(a ** 2))
+        assert rel <= 0.01, rel

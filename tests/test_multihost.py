@@ -73,7 +73,7 @@ def test_two_process_multihost_dryrun():
         env["JAX_PROCESS_ID"] = str(pid)
         # each worker gets its own compile cache dir: two processes racing
         # one cache directory is the kind of flake this test must not have
-        env["SFVP_CACHE_DIR"] = os.path.join(
+        env["JAX_COMPILATION_CACHE_DIR"] = os.path.join(
             env.get("TMPDIR", "/tmp"), f"sfvp_mh_{port}_{pid}"
         )
         procs.append(subprocess.Popen(

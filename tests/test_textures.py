@@ -225,36 +225,14 @@ def test_textured_render(tmp_path):
     assert center.max() > 4 * max(center.min(), 1e-6)
 
 
-def test_dispatch_textured_small_scene_fuses_on_regen(tmp_path):
-    """Small textured scenes with a VMEM-sized atlas fuse on the brute
-    regen megakernel (dispatch.py no longer gates brute on has_tex)."""
-    from sfvp_tpu.dispatch import select_render_step
-
-    p = _write_textured_scene(tmp_path)
-    buffers = upload(load_obj(p))
-    cfg = RenderConfig(width=8, height=8, spp_per_step=2, max_depth=2,
-                       backend="pallas")
-    step = select_render_step(cfg, buffers)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_regen"
-    out = jax.jit(lambda s: step(s, 0))(init_state(8, 8))
-    assert np.isfinite(np.asarray(out.accum)).all()
-
-
-def test_textured_packet_payload_equivalence(tmp_path):
-    """Textured scenes through the Pallas packet kernels: the leaf rows
-    carry per-corner vt + texid (accel/wide.py tris_aux), the payload
-    returns the interpolated uv, and the shade phase's bilinear gather
-    reproduces the jnp traced path exactly — for the v1 packet kernel,
-    the v2 pipelined kernel, and the HBM-streamed v2 variant."""
-    from sfvp_tpu.accel.wide import build_wide_from_buffers
+def test_textured_payload_equivalence(tmp_path, payload_trace):
+    """Textured scenes through the integrator's payload hook: the Payload
+    carries the interpolated vt + texid, and the shade phase's bilinear
+    gather reproduces the gather-based path."""
     from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.kernels.bvh_packet import make_packet_trace
-    from sfvp_tpu.kernels.bvh_packet2 import make_packet_trace2
 
     p = _write_textured_scene(tmp_path)
     buffers = upload(load_obj(p))
-    wide = build_wide_from_buffers(buffers)
-    assert wide.tris_aux is not None
     cam = CameraConfig.look_at(origin=(0, 0, 2.5), target=(0, 0, 0),
                                fov_y_deg=45)
     cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=2,
@@ -262,39 +240,17 @@ def test_textured_packet_payload_equivalence(tmp_path):
                        sky_emission=(1.0, 1.0, 1.0))
     ref = jax.jit(make_render_step(cfg, buffers))(init_state(16, 16))
     assert float(np.asarray(ref.accum).std()) > 0  # checker actually shows
-    traces = [
-        make_packet_trace(wide, t_min=cfg.t_min, interpret=True),
-        make_packet_trace2(wide, t_min=cfg.t_min, interpret=True),
-        make_packet_trace2(wide, t_min=cfg.t_min, interpret=True,
-                           stream_tris=True),
-    ]
-    for tr in traces:
-        step = make_render_step(cfg, buffers, trace_payload_fn=tr)
-        out = jax.jit(step)(init_state(16, 16))
-        np.testing.assert_allclose(
-            np.asarray(out.accum), np.asarray(ref.accum),
-            rtol=1e-5, atol=1e-6,
-        )
-
-
-def test_untextured_payload_has_no_tex_planes():
-    """Untextured scenes must not pay for the 3 extra payload planes."""
-    from sfvp_tpu.accel.wide import build_wide_from_buffers
-    from sfvp_tpu.kernels.bvh_packet import make_packet_trace
-
-    buffers = upload(load_obj())
-    wide = build_wide_from_buffers(buffers)
-    assert wide.tris_aux is None
-    trace = make_packet_trace(wide, t_min=1e-3, interpret=True)
-    o = (jnp.zeros((128,)), jnp.full((128,), -1.0), jnp.full((128,), 5.0))
-    d = (jnp.zeros((128,)), jnp.zeros((128,)), jnp.full((128,), -1.0))
-    pay = trace(o, d, 1e4)
-    assert pay.texid is None and pay.texu is None
+    step = make_render_step(
+        cfg, buffers,
+        trace_payload_fn=payload_trace(buffers, t_min=cfg.t_min))
+    out = jax.jit(step)(init_state(16, 16))
+    np.testing.assert_allclose(
+        np.asarray(out.accum), np.asarray(ref.accum), rtol=1e-5, atol=1e-6,
+    )
 
 
 def _multi_tex_buffers():
-    """40-tri scene with two different-sized textures + untextured faces
-    (the fused-kernel atlas stress shape)."""
+    """40-tri scene with two different-sized textures + untextured faces."""
     from sfvp_tpu.scene.buffers import from_arrays
 
     def chan(h, w, seed):
@@ -323,81 +279,20 @@ def _multi_tex_buffers():
                        textures=tex)
 
 
-def test_bvh_megakernel_texture_equivalence():
-    """The fused BVH regen megakernel's in-kernel atlas fetch
-    (kernels/imgfetch.py separable one-hot gather) matches the wavefront
-    integrator on a mixed multi-texture scene, incl. NEE+MIS and the
-    HBM-streamed triangle path."""
+def test_multi_texture_bvh_matches_brute():
+    """A pool of two differently sized textures plus untextured faces:
+    the BVH-traced integrator matches the brute-force one, with and
+    without NEE+MIS."""
     from sfvp_tpu.dispatch import select_trace_fn
-    from sfvp_tpu.kernels.megakernel_bvh import make_bvh_regen_render_step
 
     buffers = _multi_tex_buffers()
-    # (cfg kwargs, stream_tris, smem_leaf) — the smem_leaf rows pin the
-    # SMEM leaf ring's parallel AUX (uv/texid) ring bitwise against the
-    # lane-extract path on both resident and streamed sources.
-    for kw, stream, sl in ((dict(), False, False),
-                           (dict(use_nee=True, use_mis=True,
-                                 sampling="cosine"), False, True),
-                           (dict(use_nee=True, use_mis=True,
-                                 sampling="cosine"), True, False),
-                           (dict(use_nee=True, use_mis=True,
-                                 sampling="cosine"), True, True)):
-        cfg = RenderConfig(width=16, height=16, spp_per_step=4,
-                           max_depth=4, **kw)
-        wave = make_render_step(
-            cfg, buffers, trace_fn=select_trace_fn(cfg, buffers),
-            global_shape=(16, 16))
-        kern = make_bvh_regen_render_step(
-            cfg, buffers, global_shape=(16, 16), interpret=True,
-            stream_tris=stream, smem_leaf=sl)
-        st = init_state(16, 16)
-        a = np.asarray(wave(st).accum)
-        b = np.asarray(kern(st).accum)
-        err = np.max(np.abs(a - b)) / max(1e-6, float(np.max(np.abs(a))))
-        assert err < 2e-3, (kw, stream, err)
-        assert float(np.max(a)) > 0
-
-
-def test_brute_regen_texture_equivalence():
-    """The brute-force regen megakernel's in-kernel atlas fetch
-    (scene_table rows 20-26 + kernels/imgfetch.py) matches the jnp
-    wavefront integrator on a mixed multi-texture scene, incl. NEE+MIS."""
-    from sfvp_tpu.kernels.megakernel_regen import make_regen_render_step
-
-    buffers = _multi_tex_buffers()
-    for kw in (dict(),
-               dict(use_nee=True, use_mis=True, sampling="cosine")):
-        cfg = RenderConfig(width=16, height=16, spp_per_step=2,
-                           max_depth=3, **kw)
+    for kw in (dict(), dict(use_nee=True, use_mis=True, sampling="cosine")):
+        cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=3,
+                           traversal="bvh", **kw)
         a = jax.jit(make_render_step(cfg, buffers))(init_state(16, 16))
-        b = jax.jit(make_regen_render_step(cfg, buffers, interpret=True))(
-            init_state(16, 16)
-        )
+        b = jax.jit(make_render_step(
+            cfg, buffers, trace_fn=select_trace_fn(cfg, buffers)))(
+            init_state(16, 16))
         an, bn = np.asarray(a.accum), np.asarray(b.accum)
-        err = np.max(np.abs(an - bn)) / max(1e-6, float(np.max(np.abs(an))))
-        assert err < 2e-3, (kw, err)
+        np.testing.assert_allclose(bn, an, rtol=1e-4, atol=1e-5)
         assert float(np.max(an)) > 0
-
-
-def test_dispatch_textured_scene_fuses_on_bvh_megakernel():
-    """A VMEM-sized atlas keeps textured bvh scenes on the fused regen
-    megakernel; an oversized atlas falls back to the wavefront loop."""
-    from sfvp_tpu.dispatch import select_render_step
-
-    buffers = _multi_tex_buffers()
-    cfg = RenderConfig(width=8, height=8, spp_per_step=2, max_depth=2,
-                       backend="pallas", traversal="bvh")
-    step = select_render_step(cfg, buffers)
-    assert step.__module__ == "sfvp_tpu.kernels.megakernel_bvh"
-
-    big = 1024
-    n = big * big
-    big_tex = TextureTable(
-        tr=jnp.zeros((n,), jnp.float32), tg=jnp.zeros((n,), jnp.float32),
-        tb=jnp.zeros((n,), jnp.float32),
-        off=jnp.zeros((1,), jnp.int32),
-        width=jnp.full((1,), big, jnp.int32),
-        height=jnp.full((1,), big, jnp.int32),
-    )
-    step = select_render_step(cfg, buffers._replace(textures=big_tex))
-    assert step.__module__ == "sfvp_tpu.integrate.wavefront"

@@ -1,166 +1,70 @@
-"""Packet-level TLAS (accel/tlas.py + kernels/bvh_tlas.py): in-kernel
-two-level traversal must agree with the flattened single-level scene
-(the correctness oracle) on hits AND payloads, including instance
-transforms (rotation + translation + uniform scale) and shared BLASes."""
+"""Instanced scenes: the flattened rendering path every driver takes for
+lists of Instances."""
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 
 from sfvp_tpu.accel.instances import Instance, flatten_instances
-from sfvp_tpu.accel.tlas import build_two_level
-from sfvp_tpu.kernels.bvh_tlas import make_two_level_trace
-from sfvp_tpu.kernels.intersect import trace_brute_jnp
-from sfvp_tpu.scene.buffers import upload
 from sfvp_tpu.scene.objload import Scene
 
 
-def _mesh(n, seed):
-    g = np.random.default_rng(seed)
-    v = (g.uniform(-0.5, 0.5, (n, 1, 3))
-         + g.normal(0, 0.15, (n, 3, 3))).astype(np.float32)
-    kd = g.uniform(0, 1, (n, 3)).astype(np.float32)
-    ke = np.zeros((n, 3), np.float32)
-    return Scene(
-        vertices=v.reshape(-1, 3),
-        indices=np.arange(3 * n, dtype=np.uint32),
-        face_diffuse=kd, face_emission=ke,
-        face_specular=np.zeros_like(kd),
-        face_mat_type=np.zeros(n, np.int32),
-    )
+def _lamp():
+    return Instance(
+        scene=Scene(
+            vertices=np.asarray([
+                [-1.2, 4.0, -1.2], [1.2, 4.0, -1.2], [1.2, 4.0, 1.2],
+                [-1.2, 4.0, -1.2], [1.2, 4.0, 1.2], [-1.2, 4.0, 1.2],
+            ], np.float32),
+            indices=np.arange(6, dtype=np.uint32),
+            face_diffuse=np.zeros((2, 3), np.float32),
+            face_emission=np.full((2, 3), 9.0, np.float32),
+        ),
+        transform=np.hstack([np.eye(3, dtype=np.float32),
+                             np.zeros((3, 1), np.float32)]))
 
 
-def _rot(axis, deg):
-    a = np.radians(deg)
-    c, s = np.cos(a), np.sin(a)
-    if axis == "y":
-        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
-    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float32)
+def _field_cfg(**kw):
+    from sfvp_tpu import RenderConfig
+    from sfvp_tpu.config import CameraConfig
 
-
-def _instances(n_inst, mesh_a, mesh_b):
-    g = np.random.default_rng(42)
-    out = []
-    for i in range(n_inst):
-        rot = _rot("y", float(g.uniform(0, 360))) @ _rot("x", float(
-            g.uniform(-40, 40)))
-        scale = float(g.uniform(0.6, 1.6))
-        tr = g.uniform(-4, 4, 3).astype(np.float32)
-        m = np.hstack([(rot * scale).astype(np.float32), tr[:, None]])
-        out.append(Instance(scene=mesh_a if i % 2 == 0 else mesh_b,
-                            transform=m))
-    return out
-
-
-def _rays(m, seed=1):
-    g = np.random.default_rng(seed)
-    o = g.uniform(-6, 6, (m, 3)).astype(np.float32)
-    d = g.normal(size=(m, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return jnp.asarray(o), jnp.asarray(d)
-
-
-@pytest.mark.parametrize("n_inst", [3, 17])
-def test_two_level_packet_matches_flattened(n_inst):
-    mesh_a = _mesh(30, seed=1)
-    mesh_b = _mesh(22, seed=2)
-    instances = _instances(n_inst, mesh_a, mesh_b)
-    tl = build_two_level(instances)
-    assert tl.num_instances == n_inst
-    trace = make_two_level_trace(tl, t_min=1e-3, interpret=True)
-
-    flat = upload(flatten_instances(instances))
-    o, d = _rays(1536)
-    pay = trace((o[:, 0], o[:, 1], o[:, 2]),
-                (d[:, 0], d[:, 1], d[:, 2]), 1e4)
-    ref = trace_brute_jnp(o, d, flat, 1e-3, 1e4)
-
-    rt = np.where(np.asarray(ref.prim) >= 0, np.asarray(ref.t), np.inf)
-    pt = np.asarray(pay.t)
-    # t in world measure must match the flattened world-space trace
-    np.testing.assert_allclose(pt, rt, rtol=2e-4, atol=2e-5)
-
-    # payload world vertices reconstruct the same hit position
-    hit = np.isfinite(rt)
-    w = 1.0 - np.asarray(pay.u) - np.asarray(pay.v)
-    px = (np.asarray(pay.p0[0]) * w + np.asarray(pay.p1[0]) * np.asarray(pay.u)
-          + np.asarray(pay.p2[0]) * np.asarray(pay.v))
-    ox, dx_ = np.asarray(o[:, 0]), np.asarray(d[:, 0])
-    np.testing.assert_allclose(px[hit], (ox + rt * dx_)[hit],
-                               rtol=1e-3, atol=2e-3)
-
-    # albedo comes from the correct instance's mesh materials
-    flat_kd = np.asarray(flat.dr)[np.maximum(np.asarray(ref.prim), 0)]
-    np.testing.assert_allclose(np.asarray(pay.albedo[0])[hit],
-                               flat_kd[hit], rtol=1e-5, atol=1e-5)
+    cam = CameraConfig.look_at(origin=(6.0, 5.0, 6.0), target=(0, 0.6, 0),
+                               fov_y_deg=50)
+    base = dict(width=16, height=16, spp_per_step=2, max_depth=2,
+                camera=cam, sampling="cosine", sky_emission=(0.8, 0.85, 1.0))
+    base.update(kw)
+    return RenderConfig(**base)
 
 
 def test_instanced_renderer_first_class():
-    """A list of Instances is a first-class Renderer scene: on a pallas
-    backend dispatch routes it through the two-level TLAS packet trace
-    (dispatch.select_instanced_render_step), pixel-matching the flattened
-    single-level scene on the jnp oracle backend."""
+    """A list of Instances is a first-class Renderer scene: dispatch
+    flattens it (dispatch.select_instanced_render_step), so it
+    pixel-matches the flattened scene, with and without NEE."""
     import dataclasses
 
-    from sfvp_tpu import RenderConfig
-    from sfvp_tpu.config import CameraConfig
     from sfvp_tpu.render.driver import Renderer
     from sfvp_tpu.scene.procedural import instanced_field
 
     insts = instanced_field(n_tris=300, n_inst=4)
-    cam = CameraConfig.look_at(origin=(6.0, 5.0, 6.0), target=(0, 0.6, 0),
-                               fov_y_deg=50)
-    cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=2,
-                       camera=cam, sampling="cosine",
-                       sky_emission=(0.8, 0.85, 1.0), backend="pallas",
-                       packet_tile_size=8)
-    r_tl = Renderer(cfg, insts)
-    a = np.asarray(r_tl.step(1).accum)
-
-    flat = flatten_instances(insts)
-    r_flat = Renderer(dataclasses.replace(cfg, backend="jnp"), flat)
-    b = np.asarray(r_flat.step(1).accum)
-    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    cfg = _field_cfg()
+    a = np.asarray(Renderer(cfg, insts).step(1).accum)
+    b = np.asarray(Renderer(cfg, flatten_instances(insts)).step(1).accum)
+    np.testing.assert_array_equal(a, b)
 
     with pytest.raises(ValueError):
         Renderer(cfg, insts, trace_fn=lambda *a: None)
 
-    # NEE on an instanced scene: shadow rays trace through the same
-    # two-level payload kernel (wavefront _shadow_occluded fallback)
-    lamp = Scene(
-        vertices=np.asarray([
-            [-1.2, 4.0, -1.2], [1.2, 4.0, -1.2], [1.2, 4.0, 1.2],
-            [-1.2, 4.0, -1.2], [1.2, 4.0, 1.2], [-1.2, 4.0, 1.2],
-        ], np.float32),
-        indices=np.arange(6, dtype=np.uint32),
-        face_diffuse=np.zeros((2, 3), np.float32),
-        face_emission=np.full((2, 3), 9.0, np.float32),
-    )
-    lit = insts + [Instance(
-        scene=lamp,
-        transform=np.hstack([np.eye(3, dtype=np.float32),
-                             np.zeros((3, 1), np.float32)]))]
+    lit = insts + [_lamp()]
     cfg_nee = dataclasses.replace(cfg, use_nee=True, use_mis=True,
                                   sky_emission=(0.05, 0.05, 0.05))
     a = np.asarray(Renderer(cfg_nee, lit).step(1).accum)
-    b = np.asarray(Renderer(
-        dataclasses.replace(cfg_nee, backend="jnp"),
-        flatten_instances(lit)).step(1).accum)
-    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    b = np.asarray(Renderer(cfg_nee, flatten_instances(lit)).step(1).accum)
+    np.testing.assert_array_equal(a, b)
 
 
-def test_instanced_textures_through_tlas_kernel(tmp_path):
-    """map_Kd on instanced scenes: the TLAS kernel interpolates the
-    per-corner vt at the hit and shifts the mesh-local texid by the
-    instance's texture base (instance row lane 25), landing in the
-    flattened MERGED texture pool — including the duplicate entries
-    flatten_instances creates for instances sharing one textured mesh.
-    Pixel-matches the flattened jnp oracle."""
-    import dataclasses
-
-    from sfvp_tpu import RenderConfig
-    from sfvp_tpu.config import CameraConfig
+def test_instanced_textures_match_flattened(tmp_path):
+    """map_Kd on instanced scenes: flattening merges the texture pools —
+    including the duplicate entries for instances sharing one textured
+    mesh — and the render pixel-matches the flattened scene."""
     from sfvp_tpu.render.driver import Renderer
     from sfvp_tpu.scene.procedural import instanced_field
 
@@ -180,235 +84,24 @@ def test_instanced_textures_through_tlas_kernel(tmp_path):
         ).astype(np.float32)
         mesh.face_tex = np.zeros((n,), np.int32)
         mesh.texture_paths = [str(tex)]
-    cam = CameraConfig.look_at(origin=(6.0, 5.0, 6.0), target=(0, 0.6, 0),
-                               fov_y_deg=50)
-    cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=2,
-                       camera=cam, sampling="cosine",
-                       sky_emission=(0.8, 0.85, 1.0), backend="pallas",
-                       packet_tile_size=8)
+    cfg = _field_cfg()
     a = np.asarray(Renderer(cfg, insts).step(1).accum)
-    b = np.asarray(Renderer(
-        dataclasses.replace(cfg, backend="jnp"),
-        flatten_instances(insts)).step(1).accum)
-    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
-    # the textures must actually have fired: the two ball colors differ
+    b = np.asarray(Renderer(cfg, flatten_instances(insts)).step(1).accum)
+    np.testing.assert_array_equal(a, b)
+    # the textures must actually have fired
     assert a.max() > 0.05
 
 
 def test_adaptive_instanced_warmup_matches_flattened():
-    """AdaptiveRenderer accepts instance lists (instanced_wavefront_kwargs
-    carries the TLAS payload trace into make_adaptive_steps); a uniform
-    warmup step matches the flattened jnp-backend estimator exactly."""
-    import dataclasses
-
-    from sfvp_tpu import RenderConfig
-    from sfvp_tpu.config import CameraConfig
+    """AdaptiveRenderer accepts instance lists (flattened); a uniform
+    warmup step matches the flattened scene exactly."""
     from sfvp_tpu.integrate.adaptive import AdaptiveRenderer
     from sfvp_tpu.scene.procedural import instanced_field
 
     insts = instanced_field(n_tris=300, n_inst=4)
-    cam = CameraConfig.look_at(origin=(6.0, 5.0, 6.0), target=(0, 0.6, 0),
-                               fov_y_deg=50)
-    cfg = RenderConfig(width=16, height=16, spp_per_step=1, max_depth=2,
-                       camera=cam, sampling="cosine",
-                       sky_emission=(0.8, 0.85, 1.0), backend="pallas",
-                       packet_tile_size=8)
+    cfg = _field_cfg(spp_per_step=1)
     a = AdaptiveRenderer(cfg, insts, tile=8, warmup=1)
     a.step(1)
-    b = AdaptiveRenderer(dataclasses.replace(cfg, backend="jnp"),
-                         flatten_instances(insts), tile=8, warmup=1)
+    b = AdaptiveRenderer(cfg, flatten_instances(insts), tile=8, warmup=1)
     b.step(1)
-    np.testing.assert_allclose(a.image(), b.image(), rtol=1e-4, atol=1e-5)
-
-
-def test_two_level_render_step():
-    """The TLAS trace slots into the wavefront integrator as the payload
-    trace and matches the flattened brute render pixel-exactly."""
-    from sfvp_tpu import RenderConfig, init_state
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.integrate.wavefront import make_render_step
-
-    mesh_a = _mesh(20, seed=5)
-    instances = _instances(5, mesh_a, mesh_a)
-    tl = build_two_level(instances)
-    trace = make_two_level_trace(tl, t_min=1e-3, interpret=True)
-    flat = upload(flatten_instances(instances))
-
-    cam = CameraConfig.look_at(origin=(0, 2, 9), target=(0, 0, 0),
-                               fov_y_deg=50)
-    cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=2,
-                       camera=cam, sampling="cosine", packet_tile_size=8)
-    step_tl = jax.jit(make_render_step(cfg, flat, trace_payload_fn=trace))
-    step_ref = jax.jit(make_render_step(cfg, flat))
-    a = np.asarray(step_tl(init_state(16, 16)).accum)
-    b = np.asarray(step_ref(init_state(16, 16)).accum)
-    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
-
-
-def test_two_level_smem_nodes_matches():
-    """smem_nodes on == off, bitwise, for the two-level trace AND the
-    any-hit occlusion kernel: the flat SMEM tables (boxes, pre-decoded
-    child codes incl. TAG_INSTANCE, flattened instance rows) hold the
-    exact same scalars the VMEM rows did."""
-    from sfvp_tpu.kernels.bvh_tlas import make_two_level_occlusion
-
-    mesh_a = _mesh(30, seed=1)
-    mesh_b = _mesh(22, seed=2)
-    instances = _instances(5, mesh_a, mesh_b)
-    tl = build_two_level(instances)
-    o, d = _rays(512)
-    ts, occs = [], []
-    for sn in (False, True):
-        trace = make_two_level_trace(tl, t_min=1e-3, interpret=True,
-                                     smem_nodes=sn)
-        pay = trace((o[:, 0], o[:, 1], o[:, 2]),
-                    (d[:, 0], d[:, 1], d[:, 2]), 1e4)
-        ts.append(np.asarray(pay.t))
-        occl = make_two_level_occlusion(tl, t_min=1e-3, interpret=True,
-                                        smem_nodes=sn)
-        occs.append(np.asarray(occl(
-            (o[:, 0], o[:, 1], o[:, 2]),
-            (d[:, 0], d[:, 1], d[:, 2]), 1e4)))
-    np.testing.assert_array_equal(ts[0], ts[1])
-    np.testing.assert_array_equal(occs[0], occs[1])
-
-
-def test_fused_two_level_regen_matches_wavefront():
-    """The FUSED instanced regen megakernel (megakernel_bvh with tl=)
-    reproduces the wavefront loop driven by the TLAS payload trace on
-    identical per-sample streams (the instanced analog of
-    test_bvh_regen_equivalence; ref raygen.rgen:41-91 over the TLAS of
-    main.cpp:514-538)."""
-    from sfvp_tpu import RenderConfig, init_state
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.integrate.wavefront import make_render_step
-    from sfvp_tpu.kernels.megakernel_bvh import make_bvh_regen_render_step
-
-    mesh_a = _mesh(30, seed=1)
-    mesh_b = _mesh(22, seed=2)
-    instances = _instances(5, mesh_a, mesh_b)
-    tl = build_two_level(instances)
-    flat = upload(flatten_instances(instances))
-    cam = CameraConfig.look_at(origin=(0, 2, 9), target=(0, 0, 0),
-                               fov_y_deg=50)
-    cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=3,
-                       camera=cam, sampling="cosine", packet_tile_size=8,
-                       sky_emission=(0.8, 0.85, 1.0))
-    trace = make_two_level_trace(tl, t_min=cfg.t_min, interpret=True)
-    a = jax.jit(make_render_step(cfg, flat, trace_payload_fn=trace))(
-        init_state(16, 16))
-    b = jax.jit(make_bvh_regen_render_step(cfg, flat, tl=tl,
-                                           interpret=True))(
-        init_state(16, 16))
-    np.testing.assert_allclose(
-        np.asarray(a.accum), np.asarray(b.accum), rtol=1e-5, atol=1e-7)
-    assert float(a.mrays) == float(b.mrays)
-    # smem_leaf through the two-level kernel: the SMEM leaf ring must be
-    # bitwise-identical to the lane-extract path (BLAS leaf rows are the
-    # same 128 floats either way)
-    c = jax.jit(make_bvh_regen_render_step(cfg, flat, tl=tl, smem_leaf=True,
-                                           interpret=True))(
-        init_state(16, 16))
-    np.testing.assert_array_equal(np.asarray(b.accum), np.asarray(c.accum))
-
-
-def test_fused_two_level_regen_nee_mis_matches_wavefront():
-    """Instanced NEE + MIS: the fused kernel's in-kernel two-level any-hit
-    shadow traversal must reproduce the wavefront loop's dedicated
-    occlusion kernel (same light table from the flattened buffers)."""
-    from sfvp_tpu import RenderConfig, init_state
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.integrate.wavefront import make_render_step
-    from sfvp_tpu.kernels.bvh_tlas import make_two_level_occlusion
-    from sfvp_tpu.kernels.megakernel_bvh import make_bvh_regen_render_step
-
-    mesh_a = _mesh(30, seed=1)
-    instances = _instances(4, mesh_a, mesh_a)
-    lamp = Scene(
-        vertices=np.asarray([
-            [-1.2, 4.0, -1.2], [1.2, 4.0, -1.2], [1.2, 4.0, 1.2],
-            [-1.2, 4.0, -1.2], [1.2, 4.0, 1.2], [-1.2, 4.0, 1.2],
-        ], np.float32),
-        indices=np.arange(6, dtype=np.uint32),
-        face_diffuse=np.zeros((2, 3), np.float32),
-        face_emission=np.full((2, 3), 9.0, np.float32),
-    )
-    lit = instances + [Instance(
-        scene=lamp,
-        transform=np.hstack([np.eye(3, dtype=np.float32),
-                             np.zeros((3, 1), np.float32)]))]
-    tl = build_two_level(lit)
-    flat = upload(flatten_instances(lit))
-    cam = CameraConfig.look_at(origin=(0, 2, 9), target=(0, 0, 0),
-                               fov_y_deg=50)
-    for use_mis in (False, True):
-        cfg = RenderConfig(width=16, height=8, spp_per_step=2, max_depth=3,
-                           camera=cam, sampling="cosine", use_nee=True,
-                           use_mis=use_mis, use_rr=True, rr_start_depth=1,
-                           packet_tile_size=8,
-                           sky_emission=(0.05, 0.05, 0.05))
-        trace = make_two_level_trace(tl, t_min=cfg.t_min, interpret=True)
-        occl = make_two_level_occlusion(tl, t_min=cfg.t_min, interpret=True)
-        a = jax.jit(make_render_step(cfg, flat, trace_payload_fn=trace,
-                                     occlusion_fn=occl))(init_state(8, 16))
-        b = jax.jit(make_bvh_regen_render_step(cfg, flat, tl=tl,
-                                               interpret=True))(
-            init_state(8, 16))
-        np.testing.assert_allclose(
-            np.asarray(a.accum), np.asarray(b.accum), rtol=1e-5, atol=1e-7)
-
-
-def test_fused_two_level_regen_smem_nodes_matches():
-    """Fused instanced kernel: smem_nodes on == off, bitwise (same
-    scalars whether node boxes/codes/instance rows come from the flat
-    SMEM tables or dynamic VMEM rows)."""
-    from sfvp_tpu import RenderConfig, init_state
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.kernels.megakernel_bvh import make_bvh_regen_render_step
-
-    mesh_a = _mesh(30, seed=1)
-    mesh_b = _mesh(22, seed=2)
-    instances = _instances(5, mesh_a, mesh_b)
-    tl = build_two_level(instances)
-    flat = upload(flatten_instances(instances))
-    cam = CameraConfig.look_at(origin=(0, 2, 9), target=(0, 0, 0),
-                               fov_y_deg=50)
-    cfg = RenderConfig(width=16, height=8, spp_per_step=2, max_depth=2,
-                       camera=cam, sampling="cosine", use_nee=True,
-                       packet_tile_size=8, sky_emission=(0.8, 0.85, 1.0))
-    outs = []
-    for sn in (False, True):
-        step = make_bvh_regen_render_step(cfg, flat, tl=tl, interpret=True,
-                                          smem_boxes=sn)
-        outs.append(np.asarray(jax.jit(step)(init_state(8, 16)).accum))
-    np.testing.assert_array_equal(outs[0], outs[1])
-
-
-def test_instanced_dispatch_routes_fused():
-    """select_instanced_render_step routes capability-fitting instanced
-    configs to the fused two-level regen kernel and falls back to the
-    wavefront loop when a gate blocks (many lights past the in-kernel
-    cap); NEE + spp_chunk > 1 stays fused since round 4
-    (probe_chunk_nee.py re-measure)."""
-    import dataclasses
-
-    from sfvp_tpu import RenderConfig
-    from sfvp_tpu.config import CameraConfig
-    from sfvp_tpu.dispatch import _instanced_fused_blockers
-    from sfvp_tpu.scene.procedural import instanced_field
-
-    insts = instanced_field(n_tris=300, n_inst=4)
-    from sfvp_tpu.accel.instances import flatten_instances as _fi
-    from sfvp_tpu.accel.tlas import build_two_level as _btl
-
-    flat = upload(_fi(insts))
-    tl = _btl(insts)
-    cam = CameraConfig.look_at(origin=(6.0, 5.0, 6.0), target=(0, 0.6, 0),
-                               fov_y_deg=50)
-    cfg = RenderConfig(width=16, height=16, spp_per_step=2, max_depth=2,
-                       camera=cam, sampling="cosine", backend="pallas",
-                       packet_tile_size=8)
-    assert _instanced_fused_blockers(cfg, flat, tl) == {}
-    cfg_chunk = dataclasses.replace(cfg, use_nee=True, spp_per_step=4,
-                                    spp_chunk=2)
-    assert _instanced_fused_blockers(cfg_chunk, flat, tl) == {}
+    np.testing.assert_array_equal(a.image(), b.image())

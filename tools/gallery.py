@@ -2,7 +2,8 @@
 
     python -u tools/gallery.py [--size 384] [--out docs/gallery]
 
-Sequential TPU renders (one process owns the chip); each entry prints a
+Sequential renders in one process (a JAX process reserves most of a
+GPU's memory, so only one may hold the card); each entry prints a
 one-line JSON record with its wall time.
 """
 
@@ -58,7 +59,7 @@ def main():
                      use_rr=True),
         load_obj())
 
-    # 3. 100k-tri displaced sphere, BVH regen megakernel
+    # 3. 100k-tri displaced sphere, BVH traversal
     cam = CameraConfig.look_at(origin=(0, 0, 4), target=(0, 0, 0),
                                fov_y_deg=50)
     run("sphere_100k",
@@ -76,9 +77,7 @@ def main():
                      use_mis=True, sky_emission=(0.25, 0.3, 0.42)),
         city_mesh(n_buildings=96, subdiv=9))
 
-    # 4b. night city, 648 emissive rooftops through the fused BVH regen
-    # kernel's one-hot MXU light select (late round 3; spp_chunk=1 keeps
-    # dispatch on the fused kernel)
+    # 4b. night city, 648 emissive rooftops (many-light NEE)
     cam = CameraConfig.look_at(origin=(13, 9, 13), target=(0, 0.8, 0),
                                fov_y_deg=55)
     run("city_night_648lights",
@@ -88,10 +87,7 @@ def main():
         city_mesh(n_buildings=96, subdiv=9, glossy_ground=True,
                   emissive_frac=0.03))
 
-    # 4c. dense night city, ~2160 emissive rooftops — past LIGHT_FLAT_MAX,
-    # so in-kernel NEE runs the TWO-LEVEL bucketed MXU select
-    # (imgfetch.light_select_rows_bucketed); dispatch used to route this
-    # to the wavefront loop
+    # 4c. dense night city, ~2160 emissive rooftops
     cam = CameraConfig.look_at(origin=(13, 9, 13), target=(0, 0.8, 0),
                                fov_y_deg=55)
     run("city_night_2160lights",
@@ -201,8 +197,7 @@ def main():
                      use_mis=True),
         lamp)
 
-    # 8. map_Kd texture at scale: 100k tris through the packet kernels'
-    # uv/texid payload planes (round 3)
+    # 8. map_Kd texture at scale: 100k tris
     tex_path = os.path.join(a.out, "_checker_tex.png")
     if not os.path.exists(tex_path):
         from sfvp_tpu.render.png import encode_png
@@ -230,9 +225,8 @@ def main():
         tex)
 
     # 9. instanced TLAS: 50 instances sharing two displaced-sphere BLASes
-    # over a ground slab, traced by the in-kernel two-level traversal
-    # (accel/tlas.py + kernels/bvh_tlas.py; ref TLAS-over-1-BLAS,
-    # main.cpp:521-538, generalized to real instancing). An instance list
+    # over a ground slab (ref TLAS-over-1-BLAS, main.cpp:521-538,
+    # generalized to real instancing; flattened for tracing). An instance list
     # is a first-class Renderer scene (dispatch.select_instanced_render_
     # step), so this rides the normal run() helper.
     from sfvp_tpu.scene.procedural import instanced_field
